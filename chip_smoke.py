@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Smoke run of `brutus_tpu_torch` on one NVIDIA H100.
+
+    python3 chip_smoke.py               # the card run (needs one CUDA card)
+    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-5 on the CPU
+
+Phases, each printing one line with its elapsed seconds:
+
+1. the card's name and power limit (`nvidia-smi`);
+2. build of the four CUDA kernels (one nvcc call, `build/kernels/`);
+3. each kernel against its plain PyTorch version on the card, at the
+   widths of the main path: K2 screen (750k models, 8 stars), K3 slab
+   gather and K1 fit (128 stars, 12288-model shortlists), K4 MC
+   integration (16 stars, 2048 models, shared normals), with the
+   deviation, the tolerance and the times of kernel, plain version,
+   library call (where one exists) and bound;
+4. the main path: `BruteForce.fit` (funnel engine) on a 750,000-model,
+   8-band correlated grid, 512 stars in 4 batches of 128, with parallax,
+   Galactic and dust priors, checked for finite outputs, true-model
+   recall and distance bias, timed as stars/s;
+5. a `kernels` JSON line: each kernel's launches during phase 4 (each
+   must be > 0) and its phase-3 deviation and times.
+
+Any failure exits non-zero.  The last line of a card run is the device
+record `{"ok": true, "device": {...}}`.  The script imports nothing of
+JAX nor of the JAX package; its grid generator is its own copy of the
+correlated lattice the repository's JAX benchmark uses.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): the
+# bound of a kernel is the larger of bytes / HBM rate and float32
+# operations / float32 (non-tensor-core) rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def correlated_grid(n_model, n_filt, seed=2):
+    """Label-ordered correlated grid: a (mini, eep, feh) lattice with
+    smooth coefficient surfaces, so neighbouring models are nearly
+    degenerate and good fits cluster into contiguous bands (the structure
+    the funnel's block selection faces on real MIST grids).  Returns the
+    `(M, F, 3)` coefficients and the `(mini, feh, loga)` labels."""
+    rng = np.random.default_rng(seed)
+    n_feh, n_eep = 10, 320
+    n_mini = -(-n_model // (n_feh * n_eep))
+    mini = np.linspace(0.5, 2.0, n_mini)
+    eep = np.linspace(202.0, 600.0, n_eep)
+    feh = np.linspace(-1.0, 0.5, n_feh)
+    mm, ee, ff = [a.ravel()[:n_model] for a in
+                  np.meshgrid(mini, eep, feh, indexing="ij")]
+    x = (ee - 202.0) / 398.0
+    logt = 3.75 - 0.12 * (mm - 1.0) + 0.25 * np.sin(np.pi * x) - 0.04 * ff
+    logl = 0.2 + 3.2 * np.log10(mm) + 1.8 * x ** 2
+    lam = np.linspace(0.0, 1.0, n_filt)
+    a1 = 2.0 - 3.5 * lam
+    a2 = rng.uniform(-1.5, 1.5, n_filt)
+    zp = rng.uniform(8.0, 10.0, n_filt)
+    t = (logt - 3.75)[:, None]
+    mags = zp[None] - 2.5 * logl[:, None] + a1[None] * t + a2[None] * t ** 2
+    r0 = 1.15 * np.exp(-0.9 * lam)[None] * (1.0 + 0.08 * t)
+    dr = 0.16 * r0 * (lam - 0.45)[None]
+    mc = np.stack([mags, r0, dr], axis=-1).astype(np.float32)
+    labels = np.zeros(n_model, [("mini", float), ("feh", float),
+                                ("loga", float)])
+    labels["mini"], labels["feh"], labels["loga"] = mm, ff, 8.0 + 2.0 * x
+    return mc, labels
+
+
+def stars(mc, n_star, seed=7):
+    """Observations of random grid models at 0.3-3 kpc, with Av that
+    follows the smoke dust map, 60-sigma photometry and 10% parallaxes."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, mc.shape[0], n_star)
+    dist = rng.uniform(0.3, 3.0, n_star)
+    av = np.clip(0.15 * dist + rng.normal(size=n_star) * 0.1, 0.01, None)
+    rv = rng.uniform(2.8, 3.8, n_star)
+    sed = mc[idx, :, 0] + av[:, None] * (mc[idx, :, 1]
+                                         + rv[:, None] * mc[idx, :, 2])
+    flux = 10 ** (-0.4 * sed) / dist[:, None] ** 2
+    err = flux / 60.0
+    flux = flux + rng.normal(size=flux.shape) * err
+    plx = 1.0 / dist + rng.normal(size=n_star) * 0.05 / dist
+    return dict(flux=flux.astype(np.float32), err=err.astype(np.float32),
+                idx=idx, dist=dist, plx=plx, plxe=0.1 / dist,
+                coords=np.tile([204.7, -19.2], (n_star, 1)))
+
+
+def smoke_dustmap():
+    from brutus_tpu_torch.dustmap import DustMap
+
+    class LadderMap(DustMap):
+        """One 120-rung line-of-sight profile for every sightline."""
+
+        def query(self, coord):
+            n = np.size(coord[0])
+            d = np.linspace(0.05, 10.0, 120)
+            return (d, np.tile(np.linspace(0.0, 1.5, 120), (n, 1)),
+                    np.full((n, 120), 0.2))
+
+    return LadderMap()
+
+
+def cuda_ms(fn, reps):
+    """Mean time of `fn()` on the card over `reps` launches (after one
+    warm-up), from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes, ops):
+    b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
+
+
+def nvidia_smi():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# K1 limits (see `fit_deviation`), set from this script's readings on an
+# H100 (PERF.md): all 0.00199, cap 0.082 (Rv, flat in the likelihood
+# where Av ~ 0; every other field below 0.0061), frac 2.6e-5, crowd
+# 0.002.  A fault at one window position gives crowd ~1.
+K1_TOL = dict(all=0.005, cap=0.2, frac=1e-4, crowd=0.05)
+
+
+def fit_deviation(k, q, gidx, n_real, tile):
+    """How far K1's pack `k` is from its plain version `q`, on the
+    fields of real models (rows lnlike .. ar).
+
+    The fixed iteration budget branches on float comparisons (the
+    tile-local freeze, step damping): where rounding in another order
+    flips one, that model stops at another point of the same fit.  Such
+    flips are rare, small and fall anywhere in the freeze window; a
+    fault in the kernel's indexing is large, or falls on the same window
+    positions in every window and star.  Returned: `near`, the max
+    |dev| of lnlike within 20 nats of each star's best; `all`, its max
+    relative to max(1, |lnlike|) over all models; `cap`, per field the
+    max |dev| / (|plain| + the field's median |plain|); `frac`, the
+    share of fields whose such deviation exceeds 1e-3; `crowd`, the
+    largest share, over the positions of the `tile`-wide window, of the
+    (star, window) pairs whose real model at that position has such a
+    field (a fault at one position hits nearly all of them).
+    """
+    real = gidx < n_real
+    d = (k[:, :11] - q[:, :11]).abs()
+    qa = q[:, :11].abs()
+    lnl = q[:, 0]
+    near = real & (lnl > lnl.amax(1, keepdim=True) - 20.0)
+    med = qa.permute(1, 0, 2)[:, real].median(1).values
+    rel = d / (qa + med[None, :, None] + 1e-30)
+    relr = rel.permute(1, 0, 2)[:, real]
+    B, P = real.shape
+    off = ((rel > 1e-3).any(1) & real).reshape(B, P // tile, tile)
+    n_pos = real.reshape(B, P // tile, tile).sum((0, 1)).clamp(min=1)
+    return dict(
+        near=d[:, 0][near].max().item(),
+        all=(d[:, 0] / qa[:, 0].clamp(min=1.0))[real].max().item(),
+        cap=relr.amax(1).tolist(),
+        frac=relr.gt(1e-3).float().mean().item(),
+        crowd=(off.sum((0, 1)) / n_pos).max().item())
+
+
+def phase_kernels(mc, labels, dev, results):
+    """Phase 3: each kernel against its plain version on the card."""
+    from brutus_tpu_torch.config import (FitConfig, PosteriorConfig,
+                                         GalPriorConfig, DustPriorConfig)
+    from brutus_tpu_torch.convert import from_numpy_grid
+    from brutus_tpu_torch.ops import funnel as TF, mc as TMC
+    from brutus_tpu_torch.ops import posterior as TP
+    cfg = FitConfig()
+    M, F, _ = mc.shape
+    tabs = from_numpy_grid(mc, labels, device=dev)
+    Mp, C = tabs.table.shape[1], tabs.table.shape[0]
+    s = stars(mc, 128, seed=11)
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    mask = torch.ones((128, F), dtype=torch.bool, device=dev)
+    fp, wf, mg, wm, mk, ndim, tv = TF.prepare_star_data(
+        t(s["flux"]), t(s["err"]), mask, cfg)
+    plx, plxw = TF._screen_parallax(t(s["plx"]), t(s["plxe"]))
+    star2, srow5 = TF._screen_star_mats(mg, wm, plx, plxw)
+    block, nb = 256, 48
+
+    # K2 at 8 stars (the plain version's (B, M) planes stay small)
+    t0 = time.time()
+    a8 = (tabs.table, tabs.maskrow, star2[:8].contiguous(),
+          srow5[:8].contiguous(), F, block, cfg)
+    k = TF.screen_blocks(*a8)
+    q = TF.screen_blocks_plain(*a8)
+    real = q > -1e29
+    err = (k - q).abs()[real].max().item()
+    # The score cancels weighted sums of squared magnitudes down to a
+    # chi2 of order 10; float32 rounding in another order moves it by a
+    # few 1e-7 of their size S = sum w (|m| + 4)^2 (bf16 products would
+    # move it by ~1e-3 of S).
+    S = (wm[:8] * ((mg[:8] - TF.SCREEN_MAG_CENTER).abs() + 4.0) ** 2).sum(1)
+    rel = ((k - q).abs() / q.abs().clamp(min=1.0))[real].max().item()
+    dev_b = ((k - q).abs() * real).amax(1)
+    tol = torch.clamp(2e-6 * S, min=1.0)
+    ok = bool((dev_b <= tol).all())
+    tol = tol.max().item()
+    ms = cuda_ms(lambda: TF.screen_blocks(*a8), 20)
+    pms = cuda_ms(lambda: TF.screen_blocks_plain(*a8), 5)
+    ops = 8 * Mp * (30 * F + 70)
+    nbytes = 4 * (3 * F * Mp + Mp + 8 * Mp // block + 8 * (2 * F + 5))
+    bms, by = bound(nbytes, ops)
+    results["screen"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"phase 3 K2 screen (8 stars x {M} models): max |dev| {err:.4g} "
+        f"(tol per star max(1, 2e-6 S), at most {tol:.3g}), max relative "
+        f"dev {rel:.3g}, kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
+        f"[{time.time() - t0:.1f} s]")
+    if not ok:
+        raise AssertionError("K2 screen disagrees with its plain version")
+
+    # K3 and K1 at 128 stars x 12288 shortlist models
+    t0 = time.time()
+    bscore = TF.screen_blocks(tabs.table, tabs.maskrow, star2, srow5, F,
+                              block, cfg)
+    bidx, idx = TF._select_blocks(bscore, nb, block)
+    P = nb * block
+    k = TF.gather_slabs(tabs.table, bidx, block)
+    q = TF.gather_slabs_plain(tabs.table, bidx, block)
+    err = (k - q).abs().max().item()
+    ms = cuda_ms(lambda: TF.gather_slabs(tabs.table, bidx, block), 20)
+    pms = cuda_ms(lambda: TF.gather_slabs_plain(tabs.table, bidx, block), 20)
+    flat = (bidx.long()[:, :, None] * block + torch.arange(
+        block, device=dev)).reshape(-1)
+    lms = cuda_ms(lambda: tabs.table[:, flat], 20)
+    bms, by = bound(4 * (2 * C * 128 * P + 128 * nb), 0)
+    results["gather"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, library_ms=lms)
+    log(f"phase 3 K3 gather (128 stars x {P}): max |dev| {err:.4g} "
+        f"(tol 0, exact), kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"torch index copy {lms:.3f} ms, bound {bms:.4f} ms ({by})  "
+        f"[{time.time() - t0:.1f} s]")
+    if err != 0.0:
+        raise AssertionError("K3 gather is not exact")
+
+    t0 = time.time()
+    coef = k
+    star4 = torch.stack([fp, wf, mg, wm], 1).contiguous()
+    nd = ndim.to(torch.float32)
+    half = (nd - 3.0) / 2.0
+    srow3 = torch.stack([-0.5 * (nd * math.log(2 * math.pi)
+                                 + torch.log(tv).sum(1)),
+                         -(half * math.log(2.0) + torch.lgamma(half)),
+                         half - 1.0], 1).contiguous()
+    args = (star4, coef, idx.contiguous(), srow3, 3, 15, tabs.n_real, 512,
+            cfg)
+    k = TF.fit_pack(*args)
+    q = TF.fit_pack_plain(*args)
+    dev1 = fit_deviation(k, q, idx, tabs.n_real, 512)
+    err, tol = dev1["near"], 0.02
+    ok = (err <= tol and dev1["all"] <= K1_TOL["all"]
+          and max(dev1["cap"]) <= K1_TOL["cap"]
+          and dev1["frac"] <= K1_TOL["frac"]
+          and dev1["crowd"] <= K1_TOL["crowd"])
+    ms = cuda_ms(lambda: TF.fit_pack(*args), 10)
+    pms = cuda_ms(lambda: TF.fit_pack_plain(*args), 3)
+    iters = cfg.kernel_mag_iters + cfg.kernel_flux_iters
+    ops = 128 * P * (F * (27 + 12 * cfg.kernel_mag_iters
+                          + 36 * (iters + 2)) + 400)
+    bms, by = bound(4 * (C * 128 * P + 128 * P + 15 * 128 * P), ops)
+    results["fit"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"phase 3 K1 fit (128 stars x {P}): max |dev| of lnlike within "
+        f"20 nats of the best {err:.4g} (tol {tol}), over all models "
+        f"{dev1['all']:.4g} relative (tol {K1_TOL['all']}); per field "
+        f"max |dev| / (|plain| + median |plain|) "
+        f"{', '.join(f'{c:.3g}' for c in dev1['cap'])} (tol "
+        f"{K1_TOL['cap']}); fields off by >1e-3 of that {dev1['frac']:.3e} "
+        f"(tol {K1_TOL['frac']}), models with one at the most crowded "
+        f"window position {dev1['crowd']:.3g} (tol {K1_TOL['crowd']}); "
+        f"kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
+        f"[{time.time() - t0:.1f} s]")
+    if not ok:
+        raise AssertionError("K1 fit disagrees with its plain version")
+
+    # K4 at 16 stars x 2048 selected models, from the select stage
+    t0 = time.time()
+    pcfg = PosteriorConfig()
+    b16 = slice(0, 16)
+    names = TF.pack_row_names(tabs.aux_names)
+    dmap = smoke_dustmap()
+    dd, dm, ds = dmap.query((s["coords"][b16, 0], s["coords"][b16, 1]))
+    from brutus_tpu_torch.dustmap import uniform_profile
+    dd, dm, ds = uniform_profile(dd, dm, ds, n=TMC.NL_PAD)
+    prof = (t(dd), t(dm), t(ds))
+    coord = t(s["coords"][b16])
+    sel = TP._select_stage(k[b16].contiguous(), names, ndim[b16], coord,
+                           t(s["plx"][b16]), t(s["plxe"][b16]), prof, pcfg,
+                           GalPriorConfig(), DustPriorConfig(), True)
+    scal, dust = TP._star_scalars(coord, t(s["plx"][b16]),
+                                  t(s["plxe"][b16]), prof, True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    K = sel["table"].shape[2]
+    noise = TP.draw_noise(gen, 16, K, pcfg, dev)
+    valid = sel["valid"].to(torch.float32)
+    rm = TP._pack_row_map(names)
+    cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
+    ka = (sel["table"], rm, valid, scal, dust, noise.z, pcfg.n_mc_prior,
+          512)
+    kk = TMC.mc_integrate(*ka, *cf)
+    flags = TMC.tile_flags(valid > 0.5, 512)
+    pa = ka[:6] + (flags, pcfg.n_mc_prior, 512)
+    qq = TMC.mc_integrate_plain(*pa, *cf)
+    # Compared on valid models whose precision is positive definite: the
+    # fixed-pass PSD repair of indefinite ones is chaotic in float32.
+    from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
+    tab = sel["table"]
+    pd = is_psd3_parts(inverse3_sym_parts(tuple(
+        tab[:, rm[3 + j]] for j in range(6))))
+    v = (valid > 0.5) & pd
+    dl = (kk[4][:, 0] - qq[4][:, 0]).abs()[v]
+    err = dl.max().item()
+    # The log-integral per model within 1e-3 relative (absolute below
+    # 1); every output within rtol = atol = 1e-3.
+    rel_l = (dl / qq[4][:, 0][v].abs().clamp(min=1.0)).max().item()
+    n_far = sum(int((~torch.isclose(a, b, rtol=1e-3, atol=1e-3))[
+        v[:, None, :].expand_as(a)].sum()) for a, b in zip(kk, qq))
+    ms = cuda_ms(lambda: TMC.mc_integrate(*ka, *cf), 20)
+    pms = cuda_ms(lambda: TMC.mc_integrate_plain(*pa, *cf), 5)
+    nmcp = noise.z.shape[2]
+    active = flags.repeat_interleave(512, 1).sum().item()
+    ops = active * (nmcp * 200 + 8 * 100)
+    nbytes = 4 * (16 * (15 + 1) * K + 16 * 3 * nmcp * K
+                  + 4 * 16 * nmcp * K + 8 * 16 * K)
+    bms, by = bound(nbytes, ops)
+    results["mc"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"phase 3 K4 mc (16 stars x {K}, {int(v.sum())} valid positive-"
+        f"definite models): max |dev| of the MC log-integral {err:.4g}, "
+        f"relative to max(1, |plain|) {rel_l:.3g} (tol 1e-3), outputs "
+        f"outside rtol = atol = 1e-3 {n_far} (tol 0), "
+        f"kernel {ms:.3f} ms, "
+        f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
+        f"[{time.time() - t0:.1f} s]")
+    if not (rel_l <= 1e-3 and n_far == 0):
+        raise AssertionError("K4 MC disagrees with its plain version")
+
+
+def phase_main(mc, labels, dev, n_star, batch, tiny):
+    """Phase 4: BruteForce.fit on the funnel engine."""
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.ops import _native
+    s = stars(mc, n_star)
+    kw = dict(parallax=s["plx"], parallax_err=s["plxe"],
+              data_coords=s["coords"], dustmap=smoke_dustmap(),
+              batch_size=batch, screen_k=1024 if tiny else 12288,
+              screen_block=256, n_sel_max=256 if tiny else 2048,
+              Nmc_prior=50, Ndraws=250, save_file=None, verbose=False,
+              return_results=True)
+    bf = BruteForce(mc, labels, device=dev)
+    _native.reset_launches()
+    t0 = time.time()
+    out = bf.fit(s["flux"], s["err"], np.ones(s["flux"].shape, bool), **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    for key, v in out.items():
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise AssertionError(f"non-finite values in {key}")
+    n = len(s["idx"])
+    if out["dist"].shape != (n, 250) or out["model_idx"].shape != (n, 250):
+        raise AssertionError("unexpected output shapes")
+    recall = float(np.mean((out["model_idx"] == s["idx"][:, None]).any(1)))
+    d_med = np.median(out["dist"], axis=1)
+    bias = float(np.median(d_med / s["dist"] - 1.0))
+    p90 = float(np.quantile(np.abs(d_med / s["dist"] - 1.0), 0.9))
+    if not abs(bias) < 0.25:
+        raise AssertionError(f"posterior distances are off: median "
+                             f"bias {bias:+.3f}")
+    return dict(seconds=dt, stars_per_s=n / dt, recall=recall,
+                dist_bias=bias, dist_p90=p90, launches=launches)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cpu", action="store_true",
+                    help="rehearse phases 4-5 on the CPU (plain versions)")
+    ap.add_argument("--tiny", action="store_true",
+                    help="a 4096-model grid and 16 stars")
+    args = ap.parse_args()
+    t_all = time.time()
+    if args.cpu:
+        dev = torch.device("cpu")
+    else:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device (use --cpu --tiny to "
+                  "rehearse on the CPU)", file=sys.stderr)
+            return 1
+        dev = torch.device("cuda")
+    from brutus_tpu_torch.ops import _native
+    card = None
+    if dev.type == "cuda":
+        t0 = time.time()
+        card = nvidia_smi()
+        log(f"phase 1 card: {card}  [{time.time() - t0:.1f} s]")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]}")
+        t0 = time.time()
+        path, blog = _native.build()
+        _native.library()
+        regs = [ln.strip() for ln in blog.splitlines() if "registers" in ln]
+        log(f"phase 2 build: {path} ({len(_native.sources())} sources, "
+            f"one nvcc call)  [{time.time() - t0:.1f} s]")
+        for ln in regs:
+            log(f"  ptxas: {ln}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.time()
+    M = 4096 if args.tiny else 750_000
+    mc, labels = correlated_grid(M, 8)
+    log(f"grid: {M} models x 8 bands, correlated lattice  "
+        f"[{time.time() - t0:.1f} s]")
+
+    results = {}
+    if dev.type == "cuda":
+        phase_kernels(mc, labels, dev, results)
+
+    t0 = time.time()
+    n_star, batch = (16, 8) if args.tiny else (512, 128)
+    r = phase_main(mc, labels, dev, n_star, batch, args.tiny)
+    log(f"phase 4 main path: BruteForce.fit, {M} models x 8 bands x "
+        f"{n_star} stars in batches of {batch}: {r['stars_per_s']:.1f} "
+        f"stars/s (kernels as first written), true model among the "
+        f"draws for {r['recall']:.3f} of the stars, median distance bias "
+        f"{r['dist_bias']:+.4f}, p90 |bias| {r['dist_p90']:.4f}, "
+        f"launches {r['launches']}  [{time.time() - t0:.1f} s]")
+
+    kernels = []
+    for name, k in _native.KERNELS.items():
+        entry = dict(name=name, route="cuda", source=k.source,
+                     replaces=k.replaces, launches=r["launches"][name])
+        entry.update(results.get(name, {}))
+        kernels.append(entry)
+    log(json.dumps({"kernels": kernels}))
+    if dev.type == "cpu":
+        log(f"phase 5 rehearsal done on the CPU (plain versions; no kernel "
+            f"launched)  [{time.time() - t_all:.1f} s total]")
+        return 0
+    missing = [e["name"] for e in kernels if e["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"main path launched no {missing} kernel")
+    log(f"phase 5 every kernel ran on the main path  "
+        f"[{time.time() - t_all:.1f} s total]")
+    log(nvidia_smi())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

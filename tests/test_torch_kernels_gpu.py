@@ -1,0 +1,153 @@
+"""The port's four CUDA kernels against their plain PyTorch versions, on
+a CUDA card.  Every test here carries the `gpu` marker and skips where
+no card is present (the check runs inside each test, never at import).
+
+The module imports no jax, so it also runs on a card machine without
+jax, where `tests/conftest.py` cannot be loaded:
+
+    python -m pytest --noconftest -p no:cacheprovider -q \\
+        tests/test_torch_kernels_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from brutus_tpu_torch.config import (FitConfig, PosteriorConfig,
+                                     GalPriorConfig, DustPriorConfig)
+from brutus_tpu_torch.convert import from_numpy_grid
+from brutus_tpu_torch.ops import funnel as TF, mc as TMC, posterior as TP
+from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _problem(M, F, B, seed, dev):
+    rng = np.random.default_rng(seed)
+    mc = np.stack([rng.uniform(8.0, 16.0, (M, F)),
+                   rng.uniform(0.4, 1.1, (M, F)),
+                   rng.uniform(0.05, 0.2, (M, F))], -1).astype(np.float32)
+    idx = rng.integers(0, M, B)
+    av = rng.uniform(0.1, 1.2, B)
+    rv = rng.uniform(2.8, 3.8, B)
+    dist = rng.uniform(0.5, 2.0, B)
+    sed = mc[idx, :, 0] + av[:, None] * (mc[idx, :, 1]
+                                         + rv[:, None] * mc[idx, :, 2])
+    flux = 10 ** (-0.4 * sed) / dist[:, None] ** 2
+    err = flux / 60.0
+    flux = flux + rng.normal(size=flux.shape) * err
+    mask = np.ones((B, F), bool)
+    mask[0, F // 2:] = False
+    lab = np.zeros(M, [("feh", float), ("loga", float)])
+    lab["feh"] = rng.uniform(-2.0, 0.3, M)
+    lab["loga"] = rng.uniform(8.0, 10.1, M)
+    tabs = from_numpy_grid(mc, lab, device=dev,
+                           lnprior=rng.uniform(-1, 0, M))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return dict(tabs=tabs, flux=t(flux), err=t(err),
+                mask=torch.as_tensor(mask, device=dev), plx=t(1.0 / dist),
+                plxe=t(0.05 / dist))
+
+
+@pytest.mark.parametrize("F", [8, 49])
+def test_funnel_kernels_match_plain(cuda, F):
+    """K2 within 1.0 of the plain score (float32 order of a cancelling
+    sum, see test_torch_funnel), K3 exact.  K1's fixed-budget iterations
+    branch on float comparisons that rounding in another order can flip,
+    so a few models stop at another point of the same fit; the limits
+    sit above the H100 readings of this problem (F=8 / F=49): lnlike
+    within 0.02 nats of the plain value on models within 20 nats of the
+    best (read 3.4e-4 / 8.3e-4); each field within 0.2 of |plain| + the
+    field's median |plain| (read 0.034 / 6.1e-5); at most 0.1% of the
+    fields beyond 1e-3 of that (read 2.1e-4 / 0)."""
+    p = _problem(2048 if F == 8 else 1024, F, 6, 3 + F, cuda)
+    tabs, cfg = p["tabs"], FitConfig()
+    fp, wf, mg, wm, mk, nd, tv = TF.prepare_star_data(
+        p["flux"], p["err"], p["mask"], cfg)
+    plx, plxw = TF._screen_parallax(p["plx"], p["plxe"])
+    star2, srow5 = TF._screen_star_mats(mg, wm, plx, plxw)
+    bs = TF.screen_blocks(tabs.table, tabs.maskrow, star2, srow5, F, 64,
+                          cfg)
+    bp = TF.screen_blocks_plain(tabs.table, tabs.maskrow, star2, srow5, F,
+                                64, cfg)
+    real = bp > -1e29
+    assert torch.equal(bs > -1e29, real)
+    assert (bs - bp).abs()[real].max().item() < 1.0
+    bidx, idx = TF._select_blocks(bp, 8, 64)
+    coef = TF.gather_slabs(tabs.table, bidx, 64)
+    assert torch.equal(coef, TF.gather_slabs_plain(tabs.table, bidx, 64))
+    star4 = torch.stack([fp, wf, mg, wm], 1).contiguous()
+    srow3 = torch.zeros((6, 3), device=cuda)
+    args = (star4, coef, idx.contiguous(), srow3, 3, 15, tabs.n_real, 512,
+            cfg)
+    k, q = TF.fit_pack(*args), TF.fit_pack_plain(*args)
+    real = idx < tabs.n_real
+    near = real & (q[:, 0] > q[:, 0].amax(1, keepdim=True) - 20.0)
+    qa = q[:, :11].abs().permute(1, 0, 2)[:, real]
+    rel = ((k[:, :11] - q[:, :11]).abs().permute(1, 0, 2)[:, real]
+           / (qa + qa.median(1, keepdim=True).values + 1e-30))
+    lnl_dev = (k[:, 0] - q[:, 0]).abs()[near].max().item()
+    frac = (rel > 1e-3).float().mean().item()
+    print(f"K1 F={F}: lnlike {lnl_dev:.3g}, field {rel.max().item():.3g}, "
+          f"share beyond 1e-3 {frac:.3g}")
+    assert lnl_dev <= 0.02
+    assert rel.max().item() <= 0.2
+    assert frac <= 1e-3
+    assert torch.equal(k[:, 11:], q[:, 11:])
+
+
+def test_mc_kernel_matches_plain(cuda):
+    """K4 against its plain version with shared normals: the MC
+    log-integral of positive-definite models in active tiles within 1e-3
+    (relative above 1; the H100 read 2.2e-6), and every one of their
+    outputs within rtol = atol = 1e-3 (the H100 read none outside)."""
+    p = _problem(4096, 8, 8, 21, cuda)
+    tabs, cfg = p["tabs"], FitConfig()
+    res = TF.loglike_grid_screened(
+        p["flux"], p["err"], p["mask"], tabs.table, tabs.maskrow,
+        tabs.n_real, tabs.aux_names, parallax=p["plx"],
+        parallax_err=p["plxe"], cfg=cfg, screen_k=1024, screen_block=256)
+    pcfg = PosteriorConfig(n_sel_max=512, prefilter_k=512)
+    coord = torch.tensor([[204.7, -19.2]] * 8, device=cuda)
+    ladder = torch.linspace(0.05, 10.0, 120, device=cuda)
+    prof = (ladder, torch.linspace(0.0, 1.5, 120, device=cuda).expand(8, 120),
+            torch.full((8, 120), 0.2, device=cuda))
+    sel = TP._select_stage(res["pack"], res["names"], res["ndim"], coord,
+                           p["plx"], p["plxe"], prof, pcfg,
+                           GalPriorConfig(), DustPriorConfig(), True)
+    scal, dust = TP._star_scalars(coord, p["plx"], p["plxe"], prof, True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    K = sel["table"].shape[2]
+    noise = TP.draw_noise(gen, 8, K, pcfg, cuda)
+    valid = sel["valid"].to(torch.float32)
+    rm = TP._pack_row_map(res["names"])
+    cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
+    args = (sel["table"], rm, valid, scal, dust, noise.z, 50)
+    k = TMC.mc_integrate(*args, 512, *cf)
+    flags = TMC.tile_flags(valid > 0.5, 512)
+    q = TMC.mc_integrate_plain(*args[:6], flags, 50, 512, *cf)
+    tab = sel["table"]
+    pd = is_psd3_parts(inverse3_sym_parts(tuple(
+        tab[:, rm[3 + j]] for j in range(6))))
+    active = flags.repeat_interleave(512, 1) > 0
+    v = active & pd
+    assert v.sum().item() > 100
+    lse_k, lse_q = k[4][:, 0][v], q[4][:, 0][v]
+    lse_rel = ((lse_k - lse_q).abs() / lse_q.abs().clamp(min=1.0)).max()
+    far = torch.cat([(~torch.isclose(a, b, rtol=1e-3, atol=1e-3))[
+        v[:, None, :].expand_as(a)] for a, b in zip(k, q)])
+    print(f"K4: log-integral {lse_rel.item():.3g}, outputs outside 1e-3 "
+          f"{int(far.sum())}")
+    assert lse_rel.item() <= 1e-3
+    assert not far.any()
+    for a, b in zip(k, q):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
