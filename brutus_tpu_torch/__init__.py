@@ -13,9 +13,11 @@ It imports torch, numpy and scipy only (h5py where a file is read or
 written) and nothing from `brutus_tpu`.  Entry points run on CUDA unless
 the caller passes `device="cpu"`.
 
-Ported so far: `BruteForce.fit` on the funnel engine (screen -> block
-top-k -> slab gather -> shortlist fit -> select stage -> MC integration
--> resampling).  See ROADMAP.md for what is still to come.
+Ported so far: `BruteForce.fit` on both fused engines, the funnel
+(screen -> block top-k -> slab gather -> shortlist fit -> select stage
+-> MC integration -> resampling) and the dense engine (fit of every
+grid model -> `lnpost_grid`), with custom prior callables.  See
+ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"

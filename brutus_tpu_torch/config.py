@@ -2,7 +2,7 @@
 Typed configuration objects of the PyTorch port.
 
 The port's own copy of `brutus_tpu.config`, cut to the fields the
-funnel path reads: each keeps the name and default it has there, so a
+port reads: each keeps the name and default it has there, so a
 value means the same thing in both packages.  Each default keeps the
 reference value it cites (`brutus/fitting.py`, `brutus/pdf.py`).
 """
@@ -58,6 +58,10 @@ class PosteriorConfig:
     psd_width: float = 0.02            # PSD repair (fitting.py:1042-1065)
     psd_max_passes: int = 8
     mvn_eps: float = 1e-30             # Cholesky jitter (utils.py:845)
+    # Make the MC normals inside K4 (Philox from per-star seeds) instead
+    # of feeding a (B, 3, nmc_pad, K) tensor of them in; draws then agree
+    # with the fed mode in distribution only.
+    kernel_rng: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,21 @@
 """
 Grid arrays -> the port's device tables.
 
-`from_numpy_grid` takes the arrays `brutus_tpu.BruteForce` takes (the
-`(M, F, 3)` magnitude coefficients, the structured label array and its
-mask) and builds the funnel's device tables, so both packages fit the
-same grid: one `(3F + n_aux, Mp)` float32 table (row `k*F + f` holds
-coefficient `k` of filter `f`, then the aux rows `lnprior`, `feh`,
-`loga`), zero columns padding M to a multiple of `tile`, and a `(Mp,)`
-mask row that is -1e30 on the padding (the layout of
-`brutus_tpu.ops.pallas_loglike.prepare_screen`'s column-major table).
+`from_numpy_grid` and `dense_tables` take the arrays
+`brutus_tpu.BruteForce` takes (the `(M, F, 3)` magnitude coefficients,
+the structured label array and its mask), so both packages fit the same
+grid.
+
+- The funnel's tables (`from_numpy_grid`): one `(3F + n_aux, Mp)`
+  float32 table (row `k*F + f` holds coefficient `k` of filter `f`,
+  then the aux rows `lnprior`, `feh`, `loga`), zero columns padding M
+  to a multiple of `tile`, and a `(Mp,)` mask row that is -1e30 on the
+  padding (the layout of `brutus_tpu.ops.pallas_loglike.prepare_screen`'s
+  column-major table).
+- The dense engine's tables (`dense_tables`): the `(3, F, Mp)`
+  coefficients of `ops.fit.prepare_coeffs` and the `(Mp,)` grid rows
+  `lnprior`, `feh`, `loga`, padded as `brutus_tpu.BruteForce.fit` pads
+  them (`fitting.py:843-859`).
 """
 
 import dataclasses
@@ -16,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.fit import prepare_coeffs
 from .priors import imf_lnprior, ps1_MrLF_lnprior
 from .utils import resolve_device
 
@@ -67,16 +75,10 @@ class GridTables:
     aux_names: tuple
 
 
-def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
-                    lnprior=None, apply_dlabels=True, tile=512):
-    """Device tables for `models (M, F, 3)` and its labels.
-
-    `lnprior` (M,) defaults to `default_grid_lnprior`; `feh` and `loga`
-    ride along when `apply_dlabels` and the labels carry them.
-    """
-    dev = resolve_device(device)
-    mc = np.asarray(models, np.float32)
-    M, F, _ = mc.shape
+def _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels):
+    """The per-model rows that travel with the grid: `lnprior` (default
+    `default_grid_lnprior`), and `feh` and `loga` when `apply_dlabels`
+    and the labels carry them."""
     if lnprior is None:
         lnprior = default_grid_lnprior(models_labels, labels_mask)
     aux = {"lnprior": np.asarray(lnprior, np.float32)}
@@ -84,6 +86,17 @@ def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
     for k in ("feh", "loga"):
         if apply_dlabels and k in names:
             aux[k] = np.asarray(models_labels[k], np.float32)
+    return aux
+
+
+def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
+                    lnprior=None, apply_dlabels=True, tile=512):
+    """The funnel's device tables for `models (M, F, 3)` and its labels
+    (`lnprior`, `feh`, `loga` rows as `_aux_rows` gives them)."""
+    dev = resolve_device(device)
+    mc = np.asarray(models, np.float32)
+    M, F, _ = mc.shape
+    aux = _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels)
     Mp = -(-M // tile) * tile
     C = 3 * F + len(aux)
     table = np.zeros((C, Mp), np.float32)
@@ -97,4 +110,34 @@ def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
                       tuple(aux))
 
 
-__all__ = ["from_numpy_grid", "default_grid_lnprior", "GridTables"]
+@dataclasses.dataclass(frozen=True)
+class DenseTables:
+    """The dense engine's device tables (see module docstring)."""
+
+    coeffs: torch.Tensor         # (3, F, Mp) float32
+    lnprior: torch.Tensor        # (Mp,), -1e30 on the padding
+    feh: torch.Tensor            # (Mp,), 0 on the padding, or None
+    loga: torch.Tensor           # (Mp,), 9 on the padding, or None
+    n_real: int
+
+
+def dense_tables(models, models_labels, labels_mask=None, device=None,
+                 lnprior=None, apply_dlabels=True, tile=512):
+    """The dense engine's device tables for `models (M, F, 3)` and its
+    labels: M padded to a multiple of `tile` with +60 mag models, whose
+    grid prior is -1e30 (`brutus_tpu.BruteForce.fit`, fitting.py:
+    843-859)."""
+    dev = resolve_device(device)
+    coeffs, M = prepare_coeffs(models, tile=tile, device=dev)
+    pad = coeffs.shape[2] - M
+    aux = _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels)
+    fill = dict(lnprior=-1e30, feh=0.0, loga=9.0)
+    rows = {k: torch.from_numpy(np.concatenate(
+        [v, np.full(pad, fill[k], np.float32)])).to(dev)
+        for k, v in aux.items()}
+    return DenseTables(coeffs, rows["lnprior"], rows.get("feh"),
+                       rows.get("loga"), M)
+
+
+__all__ = ["from_numpy_grid", "dense_tables", "default_grid_lnprior",
+           "GridTables", "DenseTables"]

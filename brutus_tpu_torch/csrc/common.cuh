@@ -42,3 +42,47 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 static inline int bk_ceil_div(long long a, long long b) {
   return (int)((a + b - 1) / b);
 }
+
+// Philox4x32-10 (Salmon et al., SC'11), with the constants and round
+// order of PyTorch's ATen/core/PhiloxRNGEngine.h: one 128-bit counter
+// and a 64-bit key give four 32-bit words.  ops/rng.py holds the same
+// function in PyTorch.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += 0x9E3779B9u;
+      k.y += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// 23 random mantissa bits under exponent 127 -> [1, 2), minus 1: a
+// uniform in [0, 1) (brutus_tpu/ops/pallas_mc.py:91-98).
+__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// Three standard normals from one Philox call by Box-Muller, as the TPU
+// kernel makes them (pallas_mc.py:241-257): u1 and u3 floored at 1e-7,
+// z0 = r1 cos a1, z1 = r1 sin a1, z2 = r2 cos a2.
+__device__ __forceinline__ void philox_normals3(uint4 ctr, uint2 key,
+                                                float* z0, float* z1,
+                                                float* z2) {
+  const uint4 w = philox4x32_10(ctr, key);
+  const float two_pi = 6.283185307179586f;
+  const float u1 = fmaxf(bits_to_uniform(w.x), 1e-7f);
+  const float u2 = bits_to_uniform(w.y);
+  const float u3 = fmaxf(bits_to_uniform(w.z), 1e-7f);
+  const float u4 = bits_to_uniform(w.w);
+  const float r1 = sqrtf(-2.0f * logf(u1));
+  const float a1 = two_pi * u2;
+  const float r2 = sqrtf(-2.0f * logf(u3));
+  const float a2 = two_pi * u4;
+  *z0 = r1 * cosf(a1);
+  *z1 = r1 * sinf(a1);
+  *z2 = r2 * cosf(a2);
+}

@@ -1,26 +1,35 @@
-// K1: per-star shortlist fit, stacked-pack output.
+// K1: grid fit of every (star, model), in two modes.
 //
-// Replaces brutus_tpu/ops/pallas_loglike.py:66 _make_kernel in per-star
-// stacked mode (launched from _make_call:774, pallas_call at :819).
+// Replaces brutus_tpu/ops/pallas_loglike.py:66 _make_kernel (launched
+// from _make_call:774, pallas_call at :819) in both of its modes:
+// - per-star stacked (`bk_fit`): each star fits its own gathered
+//   shortlist and writes one pack (B, n_rows, P) with the Gaussian
+//   constant and chi2 dimensionality prior applied, padding models
+//   masked by grid index, and the aux rows and the grid index copied
+//   through (:294-323).  Row order: lnlike, chi2, scale, av, rv, i00,
+//   i11, i22, i01, i02, i12, aux..., gidx.
+// - dense (`bk_fit_dense`, wrapper loglike_grid_fused:710): every star
+//   fits every model of one shared (3, F, Mp) grid and writes the 11
+//   fields as (11, B, Mp) planes, with `_post` (:666-696: models at or
+//   above n_real masked, Gaussian constant, chi2 dimensionality prior)
+//   applied in the same epilogue.
 //
-// For every (star, shortlist model): the direct 3x3 magnitude-space seed
-// of (mu, Av, Av*Rv) (:176-208), 6 alternating clamped Av/Rv solves
+// For every (star, model): the direct 3x3 magnitude-space seed of
+// (mu, Av, Av*Rv) (:176-208), 6 alternating clamped Av/Rv solves
 // (:210-240), the freeze mask local to the `tile`-wide window of the
-// shortlist (:248-252), 6 damped flux-space updates with the MLE flux
+// model axis (:248-252), 6 damped flux-space updates with the MLE flux
 // scale re-expanded each time (:255-273), then chi2, scale, Av, Rv and
-// the 6 precision parts.  The output is one pack (B, n_rows, P) with the
-// Gaussian constant and chi2 dimensionality prior applied, padding
-// models masked by grid index, and the aux rows and the grid index
-// copied through (:294-323).  Row order: lnlike, chi2, scale, av, rv,
-// i00, i11, i22, i01, i02, i12, aux..., gidx.
+// the 6 precision parts.
 //
 // Bound on this card: arithmetic (~1k f32 operations and ~100 expf per
 // model at F=8 against 4 * (3F + n_aux) bytes of input).
 //
 // Design: one thread per model, one CUDA block per (star, tile); the
 // block IS the freeze window, so its max reduction reproduces the
-// tile-local freeze of the TPU kernel exactly.  Per-filter state
-// (magnitude residuals, extinction vectors, model fluxes) lives in
+// tile-local freeze of the TPU kernel exactly.  The two modes differ
+// only in strides: the dense grid has no star stride (every block of a
+// window reads the same coefficients, through the cache).  Per-filter
+// state (magnitude residuals, extinction vectors, model fluxes) lives in
 // thread-local arrays of at most kMaxF filters; the star's data sits in
 // shared memory.
 #include "common.cuh"
@@ -64,14 +73,22 @@ __device__ __forceinline__ float mle_scale(
   return nmax(s_num / s_den, scale_min);
 }
 
+// Element strides of the coefficient operand (per star, per coefficient
+// row) and of the output (per star, per row).
+struct Strides {
+  size_t coef_b, coef_row, out_b, out_row;
+};
+
+// gidx == nullptr selects the dense mode: the grid index is the model
+// column p, and only the 11 fit rows are written.
 __global__ void fit_kernel(const float* __restrict__ star,
                            const float* __restrict__ coef,
                            const int* __restrict__ gidx,
                            const float* __restrict__ srow,
                            const float* __restrict__ prm_in,
-                           float* __restrict__ out, int B, int F, int P,
-                           int n_aux, int n_rows, int n_real_mask,
-                           int mag_iters, int flux_iters, int dim_prior) {
+                           float* __restrict__ out, int F, int n_aux,
+                           int n_rows, int n_real_mask, int mag_iters,
+                           int flux_iters, int dim_prior, Strides st) {
   extern __shared__ float sh[];
   float* sflux = sh;
   float* swtf = sh + F;
@@ -84,15 +101,15 @@ __global__ void fit_kernel(const float* __restrict__ star,
     sh[i] = star[(size_t)b * 4 * F + i];
   __syncthreads();
   const Prm q = load_prm(prm_in);
-  const size_t BP = (size_t)B * P;
-  const float* c0 = coef + (size_t)b * P + p;
+  const size_t crow = st.coef_row;
+  const float* c0 = coef + (size_t)b * st.coef_b + p;
 
   float mag0[kMaxF], r0[kMaxF], dr[kMaxF], m_int[kMaxF];
   float resid[kMaxF], rvec[kMaxF], m[kMaxF];
   for (int f = 0; f < F; ++f) {
-    mag0[f] = __ldg(c0 + f * BP);
-    r0[f] = __ldg(c0 + (F + f) * BP);
-    dr[f] = __ldg(c0 + (2 * F + f) * BP);
+    mag0[f] = __ldg(c0 + f * crow);
+    r0[f] = __ldg(c0 + (F + f) * crow);
+    dr[f] = __ldg(c0 + (2 * F + f) * crow);
     m_int[f] = expf(kFluxFac * mag0[f]);
   }
 
@@ -251,7 +268,8 @@ __global__ void fit_kernel(const float* __restrict__ star,
 
   // ---- epilogue (`_post` in-kernel): padding mask, Gaussian constant,
   // chi2 dimensionality prior ----
-  const int gi = gidx[(size_t)b * P + p];
+  const int P = gridDim.x * blockDim.x;
+  const int gi = gidx ? gidx[(size_t)b * P + p] : p;
   const float gidx_f = (float)gi;
   const bool bad = n_real_mask >= 0 && gidx_f >= (float)n_real_mask;
   if (bad) chi2 = 1e30f;
@@ -264,14 +282,16 @@ __global__ void fit_kernel(const float* __restrict__ star,
     const float ans = sc[1] + sc[2] * logf(safe_y) - safe_y / 2.0f;
     lnl_out = chi2 > 0.f ? ans : -INFINITY;
   }
-  float* o = out + (size_t)b * n_rows * P + p;
+  float* o = out + (size_t)b * st.out_b + p;
+  const size_t R = st.out_row;
   const float vals[11] = {lnl_out, chi2, scale, av, rv, s_den, a_den,
                           r_den, sa, sr, ar};
-  for (int r = 0; r < 11; ++r) o[(size_t)r * P] = vals[r];
+  for (int r = 0; r < 11; ++r) o[(size_t)r * R] = vals[r];
+  if (!gidx) return;
   for (int i = 0; i < n_aux; ++i)
-    o[(size_t)(11 + i) * P] = __ldg(c0 + (3 * F + i) * BP);
-  o[(size_t)(11 + n_aux) * P] = gidx_f;
-  for (int r = 12 + n_aux; r < n_rows; ++r) o[(size_t)r * P] = 0.f;
+    o[(size_t)(11 + i) * R] = __ldg(c0 + (3 * F + i) * crow);
+  o[(size_t)(11 + n_aux) * R] = gidx_f;
+  for (int r = 12 + n_aux; r < n_rows; ++r) o[(size_t)r * R] = 0.f;
 }
 
 }  // namespace
@@ -286,11 +306,33 @@ extern "C" int bk_fit(const float* star, const float* coef, const int* gidx,
                       int B, int F, int P, int n_aux, int n_rows,
                       int n_real_mask, int tile, int mag_iters,
                       int flux_iters, int dim_prior, void* stream) {
-  if (F > kMaxF) return (int)cudaErrorInvalidValue;
+  if (F > kMaxF || gidx == nullptr) return (int)cudaErrorInvalidValue;
   dim3 grid(P / tile, B);
   size_t shmem = sizeof(float) * (4 * (size_t)F + tile);
+  const Strides st{(size_t)P, (size_t)B * P, (size_t)n_rows * P,
+                   (size_t)P};
   fit_kernel<<<grid, tile, shmem, (cudaStream_t)stream>>>(
-      star, coef, gidx, srow, prm, out, B, F, P, n_aux, n_rows,
-      n_real_mask, mag_iters, flux_iters, dim_prior);
+      star, coef, gidx, srow, prm, out, F, n_aux, n_rows, n_real_mask,
+      mag_iters, flux_iters, dim_prior, st);
+  return (int)cudaGetLastError();
+}
+
+// Dense mode.  star (B, 4, F); coef (3, F, Mp) shared grid (row k*F + f
+// holds coefficient k of filter f); srow (B, 3); prm (15,); out
+// (11, B, Mp) planes lnlike, chi2, scale, av, rv, i00, i11, i22, i01,
+// i02, i12.  `tile` divides Mp and is at most 1024; n_real_mask < 0
+// disables the padding mask.
+extern "C" int bk_fit_dense(const float* star, const float* coef,
+                            const float* srow, const float* prm, float* out,
+                            int B, int F, int Mp, int n_real_mask, int tile,
+                            int mag_iters, int flux_iters, int dim_prior,
+                            void* stream) {
+  if (F > kMaxF) return (int)cudaErrorInvalidValue;
+  dim3 grid(Mp / tile, B);
+  size_t shmem = sizeof(float) * (4 * (size_t)F + tile);
+  const Strides st{0, (size_t)Mp, (size_t)Mp, (size_t)B * Mp};
+  fit_kernel<<<grid, tile, shmem, (cudaStream_t)stream>>>(
+      star, coef, nullptr, srow, prm, out, F, 0, 11, n_real_mask,
+      mag_iters, flux_iters, dim_prior, st);
   return (int)cudaGetLastError();
 }

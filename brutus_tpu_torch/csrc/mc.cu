@@ -2,11 +2,15 @@
 //
 // Replaces brutus_tpu/ops/pallas_mc.py:101 _make_mc_kernel (launched
 // from _make_mc_call:373, pallas_call at :420; wrapper mc_integrate:425)
-// in its fed-normals mode.
+// in both of its modes: fed normals (`z`) and in-kernel random numbers
+// (`seeds`, the TPU kernel's default, pallas_mc.py:166-175, 241-257).
 //
 // For every (star, selected model): escalating PSD repair (8 passes)
 // of the (s, Av, Rv) precision and its Cholesky factor; n_mc draws
-// s, Av, Rv = mean + L z from the given standard normals `z`; per draw
+// s, Av, Rv = mean + L z from the given standard normals `z`, or from
+// normals made in registers: Philox4x32-10 keyed by the star's seed
+// pair, counter (model, draw row, 0, 0), then Box-Muller
+// (common.cuh `philox_normals3`; rows from n_mc on are zero); per draw
 // the Galactocentric (R, Z) thin/thick-disk and halo log-densities with
 // the feh and age mixtures, the dust prior interpolated on a uniform
 // ladder of at most 128 rungs, the parallax prior and the bounds mask;
@@ -15,13 +19,16 @@
 // are skipped and write fixed constants (pallas_mc.py:148-158).
 //
 // Bound on this card: arithmetic (per draw ~20 transcendental functions
-// and ~150 other operations).  The dust hat interpolation of the TPU
-// kernel sums all 128 rungs to avoid gathers; a GPU thread reads the two
-// rungs whose hat weights can be non-zero, which is the same sum.
+// and ~150 other operations; in the random-number mode another 7
+// transcendental functions and ~80 integer operations of Philox).  The
+// dust hat interpolation of the TPU kernel sums all 128 rungs to avoid
+// gathers; a GPU thread reads the two rungs whose hat weights can be
+// non-zero, which is the same sum.
 //
 // Design: one thread per (star, selected model); the draws are a loop
 // inside the thread; per-star scalars and the dust ladder are read
-// through the cache.
+// through the cache.  In the random-number mode the (B, 3, nmc_pad, K)
+// normals never exist in device memory: each thread makes its own.
 #include "common.cuh"
 
 namespace {
@@ -108,6 +115,7 @@ __global__ void mc_kernel(const float* __restrict__ tab,
                           const float* __restrict__ scal,
                           const float* __restrict__ dust,
                           const float* __restrict__ z,
+                          const int* __restrict__ seeds,
                           const int* __restrict__ flags,
                           const float* __restrict__ prm,
                           const int* __restrict__ iprm,
@@ -218,7 +226,10 @@ __global__ void mc_kernel(const float* __restrict__ tab,
     }
   }
 
-  const float* zb = z + (size_t)b * 3 * nmc_pad * K + k;
+  const float* zb = z ? z + (size_t)b * 3 * nmc_pad * K + k : nullptr;
+  const uint2 key = seeds ? make_uint2((uint32_t)seeds[2 * b],
+                                       (uint32_t)seeds[2 * b + 1])
+                          : make_uint2(0u, 0u);
   const float avmin = prm[kAvmin], avmax = prm[kAvmax];
   const float rvmin = prm[kRvmin], rvmax = prm[kRvmax];
   float m_acc = BK_NEG_BIG, s_acc = 0.f, n_acc = 0.f;
@@ -227,9 +238,15 @@ __global__ void mc_kernel(const float* __restrict__ tab,
     float cmax = -INFINITY;
     for (int r8 = 0; r8 < 8; ++r8) {
       const int rr = c0 + r8;
-      const float z0 = zb[(size_t)rr * K];
-      const float z1 = zb[(size_t)(nmc_pad + rr) * K];
-      const float z2 = zb[(size_t)(2 * nmc_pad + rr) * K];
+      float z0 = 0.f, z1 = 0.f, z2 = 0.f;
+      if (zb) {
+        z0 = zb[(size_t)rr * K];
+        z1 = zb[(size_t)(nmc_pad + rr) * K];
+        z2 = zb[(size_t)(2 * nmc_pad + rr) * K];
+      } else if (rr < nmc) {
+        philox_normals3(make_uint4((uint32_t)k, (uint32_t)rr, 0u, 0u), key,
+                        &z0, &z1, &z2);
+      }
       const float s = mean_s + L00 * z0;
       const float a = mean_a + L10 * z0 + L11 * z1;
       const float r = mean_r + L20 * z0 + L21 * z1 + L22 * z2;
@@ -323,22 +340,25 @@ __global__ void mc_kernel(const float* __restrict__ tab,
 }  // namespace
 
 // tab (B, n_rows, K) gathered fit pack; valid (B, K) 0/1; scal (B, 10);
-// dust (B, 2, 128) ladder mean | std; z (B, 3, nmc_pad, K); flags
-// (B, K / tile) int32 tile-active; prm / iprm constants (see enums);
+// dust (B, 2, 128) ladder mean | std; either z (B, 3, nmc_pad, K)
+// standard normals or seeds (B, 2) int32 Philox keys, the other null;
+// flags (B, K / tile) int32 tile-active; prm / iprm constants (see enums);
 // outputs lnmc, dist, red, dred (B, nmc_pad, K) and agg (B, 8, K) =
 // [logsumexp, in-bounds count, 6 repaired covariance parts].
 extern "C" int bk_mc(const float* tab, const float* valid, const float* scal,
-                     const float* dust, const float* z, const int* flags,
-                     const float* prm, const int* iprm, float* lnmc,
+                     const float* dust, const float* z, const int* seeds,
+                     const int* flags, const float* prm, const int* iprm,
+                     float* lnmc,
                      float* dist, float* red, float* dred, float* agg,
                      int B, int K, int n_rows, int nmc, int nmc_pad,
                      int tile, int n_prm, void* stream) {
-  if (n_prm != kNPrm || nmc_pad % 8 != 0 || K % tile != 0)
+  if (n_prm != kNPrm || nmc_pad % 8 != 0 || K % tile != 0
+      || (z == nullptr) == (seeds == nullptr))
     return (int)cudaErrorInvalidValue;
   const int threads = 128;
   dim3 grid(bk_ceil_div(K, threads), B);
   mc_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      tab, valid, scal, dust, z, flags, prm, iprm, lnmc, dist, red, dred,
-      agg, B, K, n_rows, nmc, nmc_pad, tile);
+      tab, valid, scal, dust, z, seeds, flags, prm, iprm, lnmc, dist, red,
+      dred, agg, B, K, n_rows, nmc, nmc_pad, tile);
   return (int)cudaGetLastError();
 }

@@ -62,15 +62,16 @@ __global__ void screen_kernel(const float* __restrict__ tab,
       const float r0 = __ldg(tab + (size_t)(F + f) * Mp + m);
       const float dr = __ldg(tab + (size_t)(2 * F + f) * Mp + m);
       const float wf = w[f], mwf = mw[f];
-      A01 += wf * r0;
-      A02 += wf * dr;
-      Bm0 += wf * m0;
-      A11 += wf * (r0 * r0);
-      A12 += wf * (r0 * dr);
-      A22 += wf * (dr * dr);
-      RS += mwf * (-2.0f * m0) + wf * (m0 * m0);
-      b1r += mwf * r0 + wf * (-(m0 * r0));
-      b2 += mwf * dr + wf * (-(m0 * dr));
+      // Explicit FMAs: the build turns contraction off (-fmad=false).
+      A01 = fmaf(wf, r0, A01);
+      A02 = fmaf(wf, dr, A02);
+      Bm0 = fmaf(wf, m0, Bm0);
+      A11 = fmaf(wf, r0 * r0, A11);
+      A12 = fmaf(wf, r0 * dr, A12);
+      A22 = fmaf(wf, dr * dr, A22);
+      RS = fmaf(mwf, -2.0f * m0, fmaf(wf, m0 * m0, RS));
+      b1r = fmaf(mwf, r0, fmaf(wf, -(m0 * r0), b1r));
+      b2 = fmaf(mwf, dr, fmaf(wf, -(m0 * dr), b2));
     }
     const float* sr = srow + (size_t)(b0 + g) * 5;
     const float a00 = fmaxf(sr[0], 1e-30f);

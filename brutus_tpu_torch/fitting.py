@@ -2,14 +2,23 @@
 Batch brute-force fitter of the PyTorch port (mirrors
 `brutus_tpu/fitting.py`; reference `brutus/fitting.py:1110-2065`).
 
-This slice runs the funnel engine, the path the JAX package takes on an
-accelerator: per batch of stars, one Python step runs the screen (K2),
-the block top-k, the slab gather (K3), the shortlist fit (K1), the
-select stage, the MC integration (K4) and the resampling
-(`_funnel_step`).  Host work (data hygiene, dust-map lookup, HDF5
-output) stays in numpy.  Float32 matrix products run in true float32:
-the screen's sums need it (bf16-level noise scrambled the shortlist on
-the TPU, `pallas_loglike.py:467-472`), so the fit turns TF32 off.
+Two engines, resolved as the JAX package's fused engine resolves them
+(`fitting.py:756-761`):
+
+- the funnel, when `screen_k` is below the grid size: per batch of
+  stars, one Python step runs the screen (K2), the block top-k, the
+  slab gather (K3), the shortlist fit (K1, stacked mode), the select
+  stage, the MC integration (K4) and the resampling (`_funnel_step`);
+- the dense engine, when `screen_k` is 0 or at least the grid size:
+  K1 in dense mode fits every grid model for every star, and
+  `lnpost_grid` selects, integrates and resamples (`_dense_step`).
+
+Custom prior callables take `lnpost_grid` on both engines, since K4
+hard-codes the built-in priors.  Host work (data hygiene, dust-map
+lookup, HDF5 output) stays in numpy.  Float32 matrix products run in
+true float32: the screen's sums need it (bf16-level noise scrambled the
+shortlist on the TPU, `pallas_loglike.py:467-472`), so the fit turns
+TF32 off.
 """
 
 import sys
@@ -21,12 +30,14 @@ import torch
 
 from .config import (FitConfig, PosteriorConfig, GalPriorConfig,
                      DustPriorConfig)
-from .convert import from_numpy_grid, default_grid_lnprior
+from .convert import from_numpy_grid, dense_tables, default_grid_lnprior
 from .dustmap import Bayestar, uniform_profile
 from .io import ResultsWriter
+from .ops.fit import loglike_grid_fused
 from .ops.funnel import loglike_grid_screened
 from .ops.mc import NL_PAD
-from .ops.posterior import lnpost_batch, draw_noise, selection_size
+from .ops.posterior import (lnpost_batch, lnpost_grid, draw_noise,
+                            selection_size)
 from .utils import magnitude, resolve_device
 
 
@@ -38,22 +49,54 @@ def _not_ported(what, item):
 
 def _funnel_step(tables, generator, flux, err, mask, plx, plx_err, coord,
                  dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                 apply_av_prior, tile):
-    """One batch through the funnel: likelihood, then posterior."""
+                 apply_av_prior, tile, lngalprior=None, lndustprior=None):
+    """One batch through the funnel: likelihood, then posterior (K4, or
+    `lnpost_grid` on the shortlists for custom prior callables, as
+    `posterior.py:806-843` routes them)."""
     res = loglike_grid_screened(
         flux, err, mask, tables.table, tables.maskrow, tables.n_real,
         tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
         tile=tile, screen_k=fit_cfg.screen_k,
         screen_block=fit_cfg.screen_block)
-    pack = res["pack"]
-    noise = draw_noise(generator, pack.shape[0],
-                       selection_size(post_cfg, pack.shape[2]), post_cfg,
-                       pack.device)
-    return lnpost_batch(pack, res["names"], res["ndim"], coord, noise,
-                        parallax=plx, parallax_err=plx_err,
-                        dust_profile=dust_profile, cfg=post_cfg,
-                        gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-                        apply_av_prior=apply_av_prior)
+    pack, names = res["pack"], res["names"]
+    B, _, P = pack.shape
+    custom = lngalprior is not None or lndustprior is not None
+    noise = draw_noise(generator, B, selection_size(post_cfg, P), post_cfg,
+                       pack.device, grid=custom)
+    kw = dict(parallax=plx, parallax_err=plx_err, dust_profile=dust_profile,
+              cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
+              apply_av_prior=apply_av_prior)
+    if not custom:
+        return lnpost_batch(pack, names, res["ndim"], coord, noise, **kw)
+    row = {n: pack[:, i] for i, n in enumerate(names)}
+    results = dict(lnlike=row["lnlike"], chi2=row["chi2"],
+                   scale=row["scale"], av=row["av"], rv=row["rv"],
+                   icov_parts=tuple(row[n] for n in ("i00", "i11", "i22",
+                                                     "i01", "i02", "i12")),
+                   ndim=res["ndim"])
+    return lnpost_grid(results, row["lnprior"], coord, noise,
+                       feh=row.get("feh"), loga=row.get("loga"),
+                       global_idx=torch.round(row["gidx"]).to(torch.int64),
+                       lngalprior=lngalprior, lndustprior=lndustprior, **kw)
+
+
+def _dense_step(tables, generator, flux, err, mask, plx, plx_err, coord,
+                dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
+                apply_av_prior, tile, lngalprior=None, lndustprior=None):
+    """One batch through the dense engine (`brutus_tpu.BruteForce.
+    _build_step`, engine "fused" without the funnel): K1 over the whole
+    grid, then `lnpost_grid`."""
+    res = loglike_grid_fused(flux, err, mask, tables.coeffs, cfg=fit_cfg,
+                             tile=tile, n_real=tables.n_real)
+    B, M = res["lnlike"].shape
+    noise = draw_noise(generator, B, selection_size(post_cfg, M), post_cfg,
+                       tables.coeffs.device, grid=True)
+    return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
+                       parallax_err=plx_err, feh=tables.feh,
+                       loga=tables.loga, dust_profile=dust_profile,
+                       cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
+                       apply_av_prior=apply_av_prior,
+                       lngalprior=lngalprior, lndustprior=lndustprior)
 
 
 class BruteForce:
@@ -138,12 +181,17 @@ class BruteForce:
         """Fit every star against the grid and write the results file.
 
         Same arguments, defaults and output schema as
-        `brutus_tpu.BruteForce.fit` on its funnel engine
-        (`engine="fused"` with `screen_k` below the grid size).  Draws
-        come from a `torch.Generator` seeded with `seed` on the fit's
-        device; `screen_select="approx"` selects exactly.  Results
-        stream batch by batch into `save_file`; `return_results=True`
-        also returns them as a dict of numpy arrays.
+        `brutus_tpu.BruteForce.fit` on its fused engine: the funnel
+        when `screen_k` is below the grid size, else the dense engine.
+        Custom `lngalprior` / `lndustprior` callables follow the JAX
+        package's per-star contract on torch tensors (see
+        `ops.posterior.lnpost_grid`).  Draws come from a
+        `torch.Generator` seeded with `seed` on the fit's device; the
+        funnel's MC kernel makes its normals from per-star seeds unless
+        `PosteriorConfig.kernel_rng` is off.  `screen_select="approx"`
+        selects exactly.  Results stream batch by batch into
+        `save_file`; `return_results=True` also returns them as a dict
+        of numpy arrays.
         """
         if engine not in (None, "fused"):
             raise _not_ported(f"engine={engine!r}", 7)
@@ -153,8 +201,6 @@ class BruteForce:
             raise _not_ported("scan_batches > 1", 5)
         if lnprior_ext is not None:
             raise _not_ported("lnprior_ext", 5)
-        if lngalprior is not None or lndustprior is not None:
-            raise _not_ported("custom prior callables", 7)
         if resume:
             raise _not_ported("resume", 5)
         # The XLA engine's convergence loop and magnitude-space start;
@@ -184,16 +230,15 @@ class BruteForce:
                       else int(screen_k)),
             screen_block=(FitConfig.screen_block if screen_block is None
                           else int(screen_block)))
-        if not (fit_cfg.screen_k and fit_cfg.screen_k < self.NMODEL):
-            raise _not_ported("the dense fit (screen_k >= grid size; K1 "
-                              "dense mode)", 2)
+        use_screen = bool(fit_cfg.screen_k) and \
+            fit_cfg.screen_k < self.NMODEL
         post_cfg = PosteriorConfig(n_mc_prior=Nmc_prior,
                                    wt_thresh=wt_thresh,
                                    cdf_thresh=cdf_thresh, n_draws=Ndraws,
                                    avlim=tuple(avlim), rvlim=tuple(rvlim),
                                    n_sel_max=min(n_sel_max, self.NMODEL))
         if self.NMODEL >= 2 ** 24:
-            raise ValueError("the stacked pack carries grid indices as "
+            raise ValueError("the fit kernel carries grid indices as "
                              "float32, exact only below 2**24 models")
         gal_cfg = lngalprior_cfg or GalPriorConfig()
         dust_cfg = dust_cfg or DustPriorConfig()
@@ -213,10 +258,11 @@ class BruteForce:
                             torch.as_tensor(dm, **f32),
                             torch.as_tensor(ds, **f32))
 
-        tables = from_numpy_grid(self.models, self.models_labels,
-                                 self.labels_mask, device=dev,
-                                 lnprior=lnprior,
-                                 apply_dlabels=apply_dlabels, tile=tile)
+        build, step = ((from_numpy_grid, _funnel_step) if use_screen
+                       else (dense_tables, _dense_step))
+        tables = build(self.models, self.models_labels, self.labels_mask,
+                       device=dev, lnprior=lnprior,
+                       apply_dlabels=apply_dlabels, tile=tile)
         writer = None
         if save_file is not None:
             writer = ResultsWriter(save_file, n_data, Ndraws,
@@ -238,14 +284,15 @@ class BruteForce:
                 if dust_profile is not None:
                     dp = (dust_profile[0], dust_profile[1][sl],
                           dust_profile[2][sl])
-                out = _funnel_step(
+                out = step(
                     tables, generator, torch.as_tensor(data[sl], **f32),
                     torch.as_tensor(data_err[sl], **f32),
                     torch.as_tensor(data_mask[sl], device=dev),
                     torch.as_tensor(parallax[sl], **f32),
                     torch.as_tensor(parallax_err[sl], **f32),
                     torch.as_tensor(data_coords[sl], **f32), dp, fit_cfg,
-                    post_cfg, gal_cfg, dust_cfg, apply_av_prior, tile)
+                    post_cfg, gal_cfg, dust_cfg, apply_av_prior, tile,
+                    lngalprior, lndustprior)
                 out = {k: v.cpu().numpy() for k, v in out.items()}
                 if writer is not None:
                     writer.write_batch(lo, out, n_valid=n)

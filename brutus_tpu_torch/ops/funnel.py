@@ -14,6 +14,8 @@ kernel (`csrc/`) beside a plain PyTorch version of the same function:
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors, which is how the CPU tests reach the same arithmetic.
+K1's dense mode (the dense engine) is in `fit.py`; it reuses
+`fit_pack_plain` and `post_consts` from here.
 
 The grid lives in ONE `(3F + n_aux, Mp)` float32 table (row `k*F + f`
 holds coefficient `k` of filter `f`; then the aux rows: grid log-prior,
@@ -239,6 +241,22 @@ def _fit_params(cfg, device):
         dtype=torch.float32, device=device)
 
 
+def post_consts(mask, ndim, tot_var):
+    """Per-star constants `(B, 3)` of K1's `_post` epilogue (mirrors
+    `pallas_loglike._post`, :666-696, and the stacked kernel's `srow`,
+    :1333-1340): the Gaussian normalisation constant, and `cA`, `cB` of
+    the chi2 dimensionality prior `cA + cB log(chi2) - chi2 / 2` with
+    `ndim - 3` degrees of freedom."""
+    ndim_f = ndim.to(torch.float32)
+    halfdf = (ndim_f - 3.0) / 2.0
+    safe_var = torch.where(mask, tot_var, torch.ones_like(tot_var))
+    const = -0.5 * (ndim_f * LN2PI
+                    + (torch.log(safe_var) * mask).sum(1))
+    return torch.stack([const,
+                        -(halfdf * math.log(2.0) + torch.lgamma(halfdf)),
+                        halfdf - 1.0], dim=1).contiguous()
+
+
 def fit_pack_plain(star, coef, gidx, srow, n_aux, n_rows, n_real_mask,
                    tile, cfg: FitConfig):
     """Plain version of K1 (mirrors `pallas_loglike.py:66-323` step by
@@ -254,7 +272,14 @@ def fit_pack_plain(star, coef, gidx, srow, n_aux, n_rows, n_real_mask,
     avmin, avmax = cfg.avlim
     rvmin, rvmax = cfg.rvlim
     ln_init_thresh = math.log(cfg.init_thresh)
-    fsum = lambda x: x.sum(dim=0)
+
+    def fsum(x):
+        """Sum over the filter axis in filter order, one rounding per
+        term, as the kernel's loop adds."""
+        acc = x[0]
+        for i in range(1, x.shape[0]):
+            acc = acc + x[i]
+        return acc
 
     def clip(x, lo, hi):
         return torch.minimum(torch.maximum(x, lo), hi)
@@ -467,19 +492,13 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
 
     n_aux = len(aux_names)
     n_rows = 12 + n_aux
-    ndim_f = ndim.to(torch.float32)
-    halfdf = (ndim_f - 3.0) / 2.0
-    safe_var = torch.where(mask, tot_var, torch.ones_like(tot_var))
-    const = -0.5 * (ndim_f * LN2PI
-                    + (torch.log(safe_var) * mask).sum(1))
-    srow3 = torch.stack([const,
-                         -(halfdf * math.log(2.0) + torch.lgamma(halfdf)),
-                         halfdf - 1.0], dim=1).contiguous()
     star4 = torch.stack([flux_p, wt_flux, mags, wt_mag], dim=1).contiguous()
-    pack = fit_pack(star4, coef, idx.contiguous(), srow3, n_aux, n_rows,
+    pack = fit_pack(star4, coef, idx.contiguous(),
+                    post_consts(mask, ndim, tot_var), n_aux, n_rows,
                     n_real if n_real < Mp else -1, tile2, cfg)
     return dict(pack=pack, names=pack_row_names(aux_names), ndim=ndim)
 
 
 __all__ = ["loglike_grid_screened", "screen_blocks", "gather_slabs",
-           "fit_pack", "pack_row_names", "screen_score_from_sums"]
+           "fit_pack", "fit_pack_plain", "post_consts", "pack_row_names",
+           "screen_score_from_sums"]

@@ -4,13 +4,14 @@ Monte-Carlo integration of the posterior (mirrors
 
 K4 replaces `pallas_mc.py:101 _make_mc_kernel` (wrapper `mc_integrate`):
 for every (star, selected model) it repairs and factors the (s, Av, Rv)
-covariance, draws `n_mc` samples from the given standard normals, and
-integrates the Galactic, dust and parallax priors over them with an
-online logsumexp.  The CUDA kernel is `csrc/mc.cu`; `mc_integrate_plain`
-below is the same function in PyTorch, which the CPU path and the tests
-use.  The normals always come in from outside (drawn on the device from
-a `torch.Generator`); the TPU kernel's in-kernel generator is not ported
-in this slice.
+covariance, draws `n_mc` samples, and integrates the Galactic, dust and
+parallax priors over them with an online logsumexp.  The CUDA kernel is
+`csrc/mc.cu`; `mc_integrate_plain` below is the same function in
+PyTorch, which the CPU path and the tests use.  Like the TPU kernel it
+has two modes: fed normals (`z`, drawn from a `torch.Generator`), and
+random numbers made inside the kernel from per-star `seeds` (Philox,
+see `rng.py`), whose plain version is `rng.normals` followed by
+`mc_integrate_plain`.
 
 Cite: reference brutus/fitting.py:1068-1098 (MC prior integration),
 brutus/pdf.py:476-749 (gal prior), brutus/pdf.py:752-840 (dust prior),
@@ -27,6 +28,7 @@ from ..coords import _T
 from ..priors import age_prior_consts
 from ..utils import psd_repair_parts, cholesky3_parts
 from ._native import KERNELS, check
+from . import rng
 
 NEG_BIG = -1e30
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -226,30 +228,41 @@ def mc_integrate_plain(tab, row_map, valid, scal, dust, z, flags, n_mc,
     return lnp, dist, a, r, agg
 
 
+def nmc_pad_of(n_mc):
+    """Draw rows of the MC outputs: `n_mc` rounded up to 8."""
+    return -(-n_mc // 8) * 8
+
+
 def mc_integrate(tab, row_map, valid, scal, dust, z, n_mc, tile,
                  cfg: PosteriorConfig, gal_cfg: GalPriorConfig,
                  dust_cfg: DustPriorConfig, use_feh, use_loga, use_dust,
-                 use_gal=True):
+                 use_gal=True, seeds=None):
     """K4: MC integration of the priors over each selected model.
 
     tab : (B, n_rows, K) gathered fit pack, read through `row_map`
     (indices of scale, av, rv, the 6 precision parts, feh, loga);
     valid : (B, K) float 0/1; scal : (B, 10) per-star scalars; dust :
-    (B, 2, 128) ladder mean | std; z : (B, 3, nmc_pad, K) standard
-    normals (rows from `n_mc` on are padding).  Model tiles of `tile`
-    columns without a valid model are skipped.
+    (B, 2, 128) ladder mean | std.  The draws come from exactly one of
+    `z` (B, 3, nmc_pad, K) standard normals (rows from `n_mc` on are
+    padding) and `seeds` (B, 2) int32, the Philox keys of the
+    random-number mode (`rng.normals` gives its normals).  Model tiles
+    of `tile` columns without a valid model are skipped.
 
     Returns `(lnmc, dist, red, dred)` each (B, nmc_pad, K) and `agg`
     (B, 8, K) = [logsumexp over draws, in-bounds count, repaired
     covariance parts c00, c11, c22, c01, c02, c12].
     """
+    if (z is None) == (seeds is None):
+        raise ValueError("mc_integrate takes exactly one of z and seeds")
     B, n_rows, K = tab.shape
-    nmc_pad = z.shape[2]
+    nmc_pad = nmc_pad_of(n_mc) if z is None else z.shape[2]
     t = tile
     while K % t:
         t //= 2
     flags = tile_flags(valid > 0.5, t)
     if tab.device.type == "cpu":
+        if z is None:
+            z = rng.normals(seeds, K, n_mc, nmc_pad)
         return mc_integrate_plain(tab, row_map, valid, scal, dust, z,
                                   flags, n_mc, t, cfg, gal_cfg, dust_cfg,
                                   use_feh, use_loga, use_dust, use_gal)
@@ -258,7 +271,10 @@ def mc_integrate(tab, row_map, valid, scal, dust, z, n_mc, tile,
     check(valid, "valid", (B, K), device=dev)
     check(scal, "scal", (B, N_SCALARS), device=dev)
     check(dust, "dust", (B, 2, NL_PAD), device=dev)
-    check(z, "z", (B, 3, nmc_pad, K), device=dev)
+    if z is not None:
+        check(z, "z", (B, 3, nmc_pad, K), device=dev)
+    else:
+        check(seeds, "seeds", (B, 2), dtype=torch.int32, device=dev)
     if nmc_pad % 8 or nmc_pad < n_mc:
         raise ValueError("z must carry a multiple of 8 draw rows >= n_mc")
     prm = _mc_params(cfg, gal_cfg, dust_cfg, dev)
@@ -270,11 +286,11 @@ def mc_integrate(tab, row_map, valid, scal, dust, z, n_mc, tile,
     lnmc, dist, red, dred = (torch.empty(shp, dtype=torch.float32,
                                          device=dev) for _ in range(4))
     agg = torch.empty((B, N_AGG, K), dtype=torch.float32, device=dev)
-    KERNELS["mc"](tab, valid, scal, dust, z, flags, prm, iprm, lnmc, dist,
-                  red, dred, agg, B, K, n_rows, n_mc, nmc_pad, t,
-                  prm.numel())
+    KERNELS["mc_fed" if seeds is None else "mc_rng"](
+        tab, valid, scal, dust, z, seeds, flags, prm, iprm, lnmc, dist, red,
+        dred, agg, B, K, n_rows, n_mc, nmc_pad, t, prm.numel())
     return lnmc, dist, red, dred, agg
 
 
-__all__ = ["mc_integrate", "mc_integrate_plain", "tile_flags", "NL_PAD",
-           "N_SCALARS", "NEG_BIG"]
+__all__ = ["mc_integrate", "mc_integrate_plain", "tile_flags", "nmc_pad_of",
+           "NL_PAD", "N_SCALARS", "NEG_BIG"]

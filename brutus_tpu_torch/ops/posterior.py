@@ -4,17 +4,24 @@ over stars (mirrors `brutus_tpu/ops/posterior.py`; reference
 `brutus/fitting.py:823-1107` and the resampling tail of `_fit`,
 `brutus/fitting.py:2024-2061`).
 
-The stage reads the fit kernel's stacked pack: the likelihood-rank
-prefilter gathers whole pack columns, the Galactic and dust priors and
-the two relative-weight culls run in PyTorch, the MC kernel (K4, see
-`mc.py`) reads the gathered pack through a row map, and resampling uses
-plain indexing (the JAX package's one-hot matmuls only avoided slow
-gathers on the TPU and give identical values).
+Two entry points, as in the JAX package:
 
-All randomness comes in through `Noise`: the MC normals, the uniforms of
-the inverse-CDF model draws and the Gumbel noise of the per-draw pick.
-`draw_noise` makes them on the device from a `torch.Generator`; tests
-hand in the JAX package's own draws instead.
+- `lnpost_batch` reads the funnel fit kernel's stacked pack: the
+  likelihood-rank prefilter gathers whole pack columns, the Galactic and
+  dust priors and the two relative-weight culls run in PyTorch, and the
+  MC kernel (K4, see `mc.py`) reads the gathered pack through a row map.
+- `lnpost_grid` reads the dense engine's `(B, M)` fields and integrates
+  in plain PyTorch, as the JAX package does in XLA; custom prior
+  callables take this path on both engines, since K4 hard-codes the
+  built-in priors.
+
+Resampling uses plain indexing (the JAX package's one-hot matmuls only
+avoided slow gathers on the TPU and give identical values).  All
+randomness comes in through `Noise`: the MC normals (or, for K4's
+random-number mode, per-star seeds), the uniforms of the inverse-CDF
+model draws and the Gumbel noise of the per-draw pick.  `draw_noise`
+makes them on the device from a `torch.Generator`; tests hand in the
+JAX package's own draws instead.
 """
 
 import collections
@@ -24,39 +31,49 @@ import torch
 
 from ..config import PosteriorConfig, GalPriorConfig, DustPriorConfig
 from ..coords import _M
-from ..priors import gal_lnprior, dust_lnprior, scale_parallax_lnprior
-from ..utils import sym3_from_parts
-from .mc import mc_integrate, NL_PAD
+from ..priors import (gal_lnprior, dust_lnprior, parallax_lnprior,
+                      scale_parallax_lnprior)
+from ..utils import (sym3_from_parts, psd_repair_parts, cholesky3_parts)
+from .mc import mc_integrate, nmc_pad_of, NL_PAD
 
 NEG_BIG = -1e30
 # NEG_BIG is finite, so validity is a threshold, not `isfinite`.
 VALID_MIN = 0.5 * NEG_BIG
 
-Noise = collections.namedtuple("Noise", "z u gumbel")
-Noise.__doc__ = """Random inputs of `lnpost_batch`: `z` (B, 3, nmc_pad, K)
-standard normals (rows from n_mc on are zero), `u` (B, n_draws)
-uniforms in [0, 1), `gumbel` (B, n_draws, n_mc) standard Gumbel."""
+Noise = collections.namedtuple("Noise", "z u gumbel seeds",
+                               defaults=(None,))
+Noise.__doc__ = """Random inputs of the posterior: `z` the MC normals, in
+`lnpost_batch`'s layout (B, 3, nmc_pad, K) with rows from n_mc on zero,
+or in `lnpost_grid`'s (B, K, 3, n_mc); `u` (B, n_draws) uniforms in
+[0, 1); `gumbel` (B, n_draws, n_mc) standard Gumbel; `seeds` (B, 2)
+int32, the Philox keys of K4's random-number mode, given instead of `z`
+to `lnpost_batch`."""
 
 
 def _is_valid(x):
     return torch.isfinite(x) & (x > VALID_MIN)
 
 
-def _nmc_pad(n_mc):
-    return -(-n_mc // 8) * 8
-
-
-def draw_noise(generator, B, K, cfg: PosteriorConfig, device):
-    """The random inputs of one batch, drawn on `device`."""
+def draw_noise(generator, B, K, cfg: PosteriorConfig, device, grid=False):
+    """The random inputs of one batch, drawn on `device`: for
+    `lnpost_grid` when `grid`, else for `lnpost_batch`, whose MC kernel
+    makes its own normals from per-star seeds when `cfg.kernel_rng`."""
     nmc = cfg.n_mc_prior
-    z = torch.zeros((B, 3, _nmc_pad(nmc), K), dtype=torch.float32,
-                    device=device)
-    z[:, :, :nmc] = torch.randn((B, 3, nmc, K), generator=generator,
-                                device=device)
+    z = seeds = None
+    if grid:
+        z = torch.randn((B, K, 3, nmc), generator=generator, device=device)
+    elif cfg.kernel_rng:
+        seeds = torch.randint(0, 2 ** 31 - 1, (B, 2), generator=generator,
+                              dtype=torch.int32, device=device)
+    else:
+        z = torch.zeros((B, 3, nmc_pad_of(nmc), K), dtype=torch.float32,
+                        device=device)
+        z[:, :, :nmc] = torch.randn((B, 3, nmc, K), generator=generator,
+                                    device=device)
     u = torch.rand((B, cfg.n_draws), generator=generator, device=device)
     e = torch.empty((B, cfg.n_draws, nmc), device=device).exponential_(
         generator=generator)
-    return Noise(z, u, -torch.log(e))
+    return Noise(z, u, -torch.log(e), seeds)
 
 
 def _categorical_cdf(u, logits, n):
@@ -119,80 +136,122 @@ def selection_size(cfg: PosteriorConfig, M):
     return min(K, cfg.prefilter_k) if _pack_usable(cfg, M) else K
 
 
-def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
-                  dust_profile, cfg, gal_cfg, dust_cfg, apply_av_prior):
-    """Culls + priors + top-K selection of every star (mirrors
-    `posterior._select_stage`, the kernel-pack path and the path without
-    a prefilter).  pack : (B, n_rows, M)."""
-    col = {n: i for i, n in enumerate(names)}
-    B, _, M = pack.shape
-    plx, plxe = parallax[:, None], parallax_err[:, None]
+def _lnprob(lnlike, scale, s_den, plx, plxe):
+    """Likelihood plus the scale-space parallax prior, the key of the
+    first cull and of the prefilter (`posterior.py:259-265`)."""
+    scale_err = 1.0 / torch.sqrt(torch.abs(s_den))
+    lp = lnlike + scale_parallax_lnprior(scale, scale_err, plx, plxe)
+    return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, NEG_BIG))
 
-    def lnprob_of(p):
-        scale_err = 1.0 / torch.sqrt(torch.abs(p[:, col["i00"]]))
-        lp = p[:, col["lnlike"]] + scale_parallax_lnprior(
-            p[:, col["scale"]], scale_err, plx, plxe)
-        return torch.where(torch.isfinite(lp), lp,
-                           torch.full_like(lp, NEG_BIG))
 
-    lnprob = lnprob_of(pack)
-    lnprob_max = lnprob.amax(1, keepdim=True)
-    K = selection_size(cfg, M)
-    if _pack_usable(cfg, M):
-        K1 = cfg.prefilter_k
-        if cfg.prefilter_bf16:
-            key = torch.clamp(lnprob - lnprob_max, min=-3e4).to(
-                torch.bfloat16).to(torch.float32)
-        else:
-            key = lnprob
-        pre_idx = _top_k(key, K1)
-        packed = torch.gather(pack, 2, pre_idx[:, None, :].expand(
-            B, pack.shape[1], K1))
-        lnprob = lnprob_of(packed)
+def _prefilter(lnprob, lnprob_max, cfg: PosteriorConfig):
+    """`(B, prefilter_k)` indices of the likelihood-rank prefilter, best
+    first, on the max-shifted key rounded to bf16 when
+    `cfg.prefilter_bf16` (`posterior.py:267-313`)."""
+    if cfg.prefilter_bf16:
+        key = torch.clamp(lnprob - lnprob_max, min=-3e4).to(
+            torch.bfloat16).to(torch.float32)
     else:
-        packed = pack
-    g = lambda n: packed[:, col[n]]
-    lnlike, scale, av = g("lnlike"), g("scale"), g("av")
-    lnprior_grid = g("lnprior")
-    feh = g("feh") if "feh" in col else None
-    loga = g("loga") if "loga" in col else None
+        key = lnprob
+    return _top_k(key, cfg.prefilter_k)
 
+
+def _take(x, idx):
+    """`x` at the model indices `idx (B, n)`: `x` is per star `(B, M)`,
+    a grid row `(M,)` shared by every star, or None; `idx` None keeps
+    `x`."""
+    if x is None or idx is None:
+        return x
+    return x[idx] if x.dim() == 1 else torch.gather(x, 1, idx)
+
+
+def _per_star(fn, args, mapped):
+    """Apply a per-star prior callable over the leading star axis with
+    `torch.func.vmap` (the counterpart of the `jax.vmap` at
+    `posterior.py:832-843`): the arguments flagged in `mapped` map over
+    their first axis, the others (None, a grid row shared by every
+    star, the shared distance ladder) go in whole."""
+    dims = tuple(0 if m else None for m in mapped)
+    return torch.func.vmap(fn, in_dims=dims)(*args)
+
+
+def _gal_prior(dist, coord, feh, loga, gal_cfg, lngalprior):
+    """Galactic prior of `dist (B, ...)`: a custom per-star
+    `lngalprior(dist, coord, feh=, loga=)` or the built-in one.  `feh`
+    and `loga` are per star (as many dimensions as `dist`), shared, or
+    None."""
+    per_star = lambda x: x is not None and x.dim() == dist.dim()
+    if lngalprior is not None:
+        return _per_star(lambda d, c, f, a: lngalprior(d, c, feh=f, loga=a),
+                         (dist, coord, feh, loga),
+                         (True, True, per_star(feh), per_star(loga)))
+    B = dist.shape[0]
+    flat = lambda x: None if x is None else x.expand(dist.shape).reshape(
+        B, -1)
+    return gal_lnprior(flat(dist), coord, feh=flat(feh), loga=flat(loga),
+                       cfg=gal_cfg).reshape(dist.shape)
+
+
+def _dust_prior(dist, av, dust_profile, dust_cfg, lndustprior):
+    """Dust prior of `(dist, av) (B, ...)` on the per-star ladders of
+    `dust_profile`: a custom per-star `lndustprior(dist, av, av_dist,
+    av_mean, av_std)` or the built-in one."""
+    av_dist, av_mean, av_std = dust_profile
+    if lndustprior is not None:
+        return _per_star(lndustprior, (dist, av, av_dist, av_mean, av_std),
+                         (True, True, False, True, True))
+    B = dist.shape[0]
+    return dust_lnprior(dist.reshape(B, -1), av.reshape(B, -1), av_dist,
+                        av_mean, av_std, dust_cfg).reshape(dist.shape)
+
+
+def _cull_select(lnprob, lnprob_max, lnlike, lnprior, scale, av, feh, loga,
+                 coord, dust_profile, K, cfg, gal_cfg, dust_cfg,
+                 apply_av_prior, lngalprior=None, lndustprior=None):
+    """Cull on the likelihood, the priors at the MLE solutions, cull on
+    the posterior and the top-`K` selection (`posterior.py:403-470`).
+
+    Every input is `(B, n)` (or a shared `(n,)` row).  Returns `lnp_sel
+    (B, K)` (NEG_BIG where invalid), `valid (B, K)` and `sel (B, K)`,
+    the selected columns, or None when `K == n` and nothing is sorted.
+    """
     if cfg.wt_thresh is not None:
         mask1 = lnprob > torch.clamp(lnprob_max + math.log(cfg.wt_thresh),
                                      min=VALID_MIN)
     else:
         mask1 = _cull_mask(lnprob, None, cfg.cdf_thresh)
     dist = 1.0 / torch.sqrt(torch.clamp(scale, min=1e-30))
-    lnp_mle = lnlike + lnprior_grid
-    lnp_mle = lnp_mle + gal_lnprior(dist, coord, feh=feh, loga=loga,
-                                    cfg=gal_cfg)
+    lnp_mle = lnlike + lnprior
+    lnp_mle = lnp_mle + _gal_prior(dist, coord, feh, loga, gal_cfg,
+                                   lngalprior)
     if apply_av_prior and dust_profile is not None:
-        av_dist, av_mean, av_std = dust_profile
-        lnp_mle = lnp_mle + dust_lnprior(dist, av, av_dist, av_mean,
-                                         av_std, dust_cfg)
+        lnp_mle = lnp_mle + _dust_prior(dist, av, dust_profile, dust_cfg,
+                                        lndustprior)
     lnp_mle = torch.where(mask1 & _is_valid(lnp_mle), lnp_mle,
                           torch.full_like(lnp_mle, NEG_BIG))
     mask2 = _cull_mask(lnp_mle, cfg.wt_thresh, cfg.cdf_thresh,
                        base_mask=mask1)
-    score = torch.where(mask2, lnlike + lnprior_grid,
-                        torch.full_like(lnlike, -math.inf))
+    score = torch.where(mask2, lnlike + lnprior,
+                        torch.full_like(lnp_mle, -math.inf))
     if K == score.shape[1]:
-        lnp_sel, table = score, packed
+        lnp_sel, sel = score, None
     else:
         sel = _top_k(score, K)
         lnp_sel = torch.gather(score, 1, sel)
-        table = torch.gather(packed, 2, sel[:, None, :].expand(
-            B, packed.shape[1], K))
     valid = _is_valid(lnp_sel)
     lnp_sel = torch.where(valid, lnp_sel, torch.full_like(lnp_sel,
                                                           NEG_BIG))
-    t = lambda n: table[:, col[n]]
-    scale_k, chi2_k = t("scale"), t("chi2")
+    return lnp_sel, valid, sel
 
+
+def _chi2_bookkeeping(chi2_k, scale_k, valid, ndim, parallax, parallax_err):
+    """chi2 with the parallax term, band count and chi2 minimum of the
+    selection (`posterior.py:492-505`)."""
     have = torch.isfinite(parallax) & torch.isfinite(parallax_err)
     perr = torch.where(have, parallax_err, torch.ones_like(parallax_err))
     chi2_k = chi2_k + torch.where(
-        have[:, None], (torch.sqrt(scale_k) - plx) ** 2 / perr[:, None] ** 2,
+        have[:, None],
+        (torch.sqrt(scale_k) - parallax[:, None]) ** 2 / perr[:, None] ** 2,
         torch.zeros_like(chi2_k))
     ndim_out = ndim + have.to(ndim.dtype)
     inf = torch.full_like(chi2_k, math.inf)
@@ -200,12 +259,91 @@ def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
     chi2min_v = torch.where(valid, chi2_fin, inf).amin(1)
     chi2min = torch.where(torch.isfinite(chi2min_v), chi2min_v,
                           chi2_fin.amin(1))
+    return chi2_k, ndim_out, chi2min
+
+
+def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
+                  dust_profile, cfg, gal_cfg, dust_cfg, apply_av_prior):
+    """Culls + priors + top-K selection of every star on the fit
+    kernel's stacked pack (mirrors `posterior._select_stage`, the
+    kernel-pack path and the path without a prefilter): the prefilter
+    gathers whole pack columns, so the selected table feeds K4 as it
+    is.  pack : (B, n_rows, M)."""
+    col = {n: i for i, n in enumerate(names)}
+    B, _, M = pack.shape
+    plx, plxe = parallax[:, None], parallax_err[:, None]
+    lnprob_of = lambda p: _lnprob(p[:, col["lnlike"]], p[:, col["scale"]],
+                                  p[:, col["i00"]], plx, plxe)
+    lnprob = lnprob_of(pack)
+    lnprob_max = lnprob.amax(1, keepdim=True)
+    K = selection_size(cfg, M)
+    if _pack_usable(cfg, M):
+        pre_idx = _prefilter(lnprob, lnprob_max, cfg)
+        packed = torch.gather(pack, 2, pre_idx[:, None, :].expand(
+            B, pack.shape[1], pre_idx.shape[1]))
+        lnprob = lnprob_of(packed)
+    else:
+        packed = pack
+    g = lambda n: packed[:, col[n]] if n in col else None
+    lnp_sel, valid, sel = _cull_select(
+        lnprob, lnprob_max, g("lnlike"), g("lnprior"), g("scale"), g("av"),
+        g("feh"), g("loga"), coord, dust_profile, K, cfg, gal_cfg, dust_cfg,
+        apply_av_prior)
+    table = packed if sel is None else torch.gather(
+        packed, 2, sel[:, None, :].expand(B, packed.shape[1], K))
+    t = lambda n: table[:, col[n]]
+    chi2_k, ndim_out, chi2min = _chi2_bookkeeping(
+        t("chi2"), t("scale"), valid, ndim, parallax, parallax_err)
     sel_gidx = torch.round(t("gidx")).to(torch.int32)
     return dict(table=table.contiguous(), lnp_sel=lnp_sel, valid=valid,
-                scale_k=scale_k, av_k=t("av"), rv_k=t("rv"),
+                scale_k=t("scale"), av_k=t("av"), rv_k=t("rv"),
                 chi2_k=chi2_k, ndim=ndim_out, chi2min=chi2min,
-                sel_gidx=sel_gidx, has_feh=feh is not None,
-                has_loga=loga is not None)
+                sel_gidx=sel_gidx, has_feh="feh" in col,
+                has_loga="loga" in col)
+
+
+def _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
+                 parallax, parallax_err, dust_profile, cfg, gal_cfg,
+                 dust_cfg, apply_av_prior, lngalprior, lndustprior):
+    """`_select_stage` on `loglike_grid_fused`'s form of the fit (the
+    `lnpost_grid` path, `posterior.py:209-528`): `(B, M)` fields, grid
+    rows `lnprior_grid`, `feh`, `loga` either `(M,)` (gathered at the
+    selected models, never copied per star) or per star `(B, M)`."""
+    parts = tuple(results["icov_parts"])
+    f = dict(lnlike=results["lnlike"], scale=results["scale"],
+             av=results["av"], rv=results["rv"], chi2=results["chi2"],
+             lnprior=lnprior_grid, feh=feh, loga=loga, gidx=global_idx)
+    f.update({f"i{j}": x for j, x in enumerate(parts)})
+    B, M = f["lnlike"].shape
+    plx, plxe = parallax[:, None], parallax_err[:, None]
+    lnprob = _lnprob(f["lnlike"], f["scale"], f["i0"], plx, plxe)
+    lnprob_max = lnprob.amax(1, keepdim=True)
+    K = selection_size(cfg, M)
+    pre = None
+    if _pack_usable(cfg, M):
+        pre = _prefilter(lnprob, lnprob_max, cfg)
+        f = {k: _take(v, pre) for k, v in f.items()}
+        lnprob = _lnprob(f["lnlike"], f["scale"], f["i0"], plx, plxe)
+    lnp_sel, valid, sel = _cull_select(
+        lnprob, lnprob_max, f["lnlike"], f["lnprior"], f["scale"], f["av"],
+        f["feh"], f["loga"], coord, dust_profile, K, cfg, gal_cfg, dust_cfg,
+        apply_av_prior, lngalprior, lndustprior)
+    fk = {k: _take(v, sel) for k, v in f.items()}
+    chi2_k, ndim_out, chi2min = _chi2_bookkeeping(
+        fk["chi2"], fk["scale"], valid, results["ndim"], parallax,
+        parallax_err)
+    if global_idx is not None:
+        sel_gidx = fk["gidx"]
+    else:
+        cols = torch.arange(M, device=lnprob.device)
+        sel_gidx = _take(_take(cols, pre), sel)
+        if sel_gidx.dim() == 1:
+            sel_gidx = sel_gidx.expand(B, M)
+    return dict(lnp_sel=lnp_sel, valid=valid, scale_k=fk["scale"],
+                av_k=fk["av"], rv_k=fk["rv"], chi2_k=chi2_k,
+                icov_k=tuple(fk[f"i{j}"] for j in range(6)),
+                feh_k=fk["feh"], loga_k=fk["loga"], ndim=ndim_out,
+                chi2min=chi2min, sel_gidx=sel_gidx.to(torch.int32))
 
 
 def _star_scalars(coord, parallax, parallax_err, dust_profile, use_dust):
@@ -252,6 +390,27 @@ def _star_scalars(coord, parallax, parallax_err, dust_profile, use_dust):
     return scal, dust
 
 
+def _star_args(B, dev, parallax, parallax_err, coord):
+    """Per-star float32 parallax (NaN where missing) and coordinates."""
+    nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
+    parallax = nan if parallax is None else parallax.to(dev, torch.float32)
+    parallax_err = (nan if parallax_err is None
+                    else parallax_err.to(dev, torch.float32))
+    return parallax, parallax_err, coord.to(dev, torch.float32)
+
+
+def _evidence_and_draws(lnp_sel, chi2_k, u, n_draws):
+    """Log-evidence and the inverse-CDF model draws `(B, n_draws)`; a
+    star with no valid model draws by exp(-chi2/2) over the selection
+    (`posterior.py:540-558`)."""
+    log_evid = torch.logsumexp(lnp_sel, dim=1)
+    chi2_draw = torch.where(torch.isfinite(chi2_k), chi2_k,
+                            torch.full_like(chi2_k, 1e30))
+    any_ok = _is_valid(lnp_sel).any(1, keepdim=True)
+    logits = torch.where(any_ok, lnp_sel, -0.5 * chi2_draw)
+    return log_evid, _categorical_cdf(u, logits, n_draws)
+
+
 def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
                  parallax_err=None, dust_profile=None,
                  cfg: PosteriorConfig = PosteriorConfig(),
@@ -265,19 +424,16 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
     (`funnel.pack_row_names`; must hold `lnprior`, and `feh`/`loga` to
     apply those mixtures); ndim : (B,); coord : (B, 2) galactic degrees;
     dust_profile : `(av_dist (Nd,), av_mean (B, Nd), av_std (B, Nd))`
-    on a uniform ladder of at most 128 rungs.
+    on a uniform ladder of at most 128 rungs; noise : `z` (fed normals)
+    or `seeds` (normals made inside K4), with `u` and `gumbel`.
 
     Returns per-draw `(B, n_draws)` fields `model_idx, scale, av, rv,
     lnprob, dist, red, dred, logwt` and `cov_sar (B, n_draws, 3, 3)`,
     and per-star `log_evidence, chi2min, ndim`.
     """
     B = pack.shape[0]
-    dev = pack.device
-    nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-    parallax = nan if parallax is None else parallax.to(dev, torch.float32)
-    parallax_err = (nan if parallax_err is None
-                    else parallax_err.to(dev, torch.float32))
-    coord = coord.to(dev, torch.float32)
+    parallax, parallax_err, coord = _star_args(B, pack.device, parallax,
+                                               parallax_err, coord)
     use_dust = dust_profile is not None and apply_av_prior
     sel = _select_stage(pack, names, ndim, coord, parallax, parallax_err,
                         dust_profile, cfg, gal_cfg, dust_cfg,
@@ -288,21 +444,16 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
     valid = sel["valid"]
     lnmc, dist_k, red_k, dred_k, agg = mc_integrate(
         sel["table"], _pack_row_map(names), valid.to(torch.float32), scal,
-        dust, noise.z.contiguous(), nmc, tile, cfg, gal_cfg, dust_cfg,
-        use_feh=sel["has_feh"], use_loga=sel["has_loga"],
-        use_dust=use_dust)
+        dust, None if noise.z is None else noise.z.contiguous(), nmc, tile,
+        cfg, gal_cfg, dust_cfg, use_feh=sel["has_feh"],
+        use_loga=sel["has_loga"], use_dust=use_dust, seeds=noise.seeds)
 
     lnp_sel = sel["lnp_sel"] + agg[:, 0] - torch.log(
         torch.clamp(agg[:, 1], min=1.0))
     lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (agg[:, 1] > 0),
                           lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
-    log_evid = torch.logsumexp(lnp_sel, dim=1)
-    chi2_k = sel["chi2_k"]
-    chi2_draw = torch.where(torch.isfinite(chi2_k), chi2_k,
-                            torch.full_like(chi2_k, 1e30))
-    any_ok = _is_valid(lnp_sel).any(1, keepdim=True)
-    logits = torch.where(any_ok, lnp_sel, -0.5 * chi2_draw)
-    idxs = _categorical_cdf(noise.u, logits, cfg.n_draws)    # (B, nd)
+    log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"], noise.u,
+                                         cfg.n_draws)
 
     take = lambda x: torch.gather(x, 1, idxs)
     # (B, nmc, K) draw fields at the drawn models -> (B, nd, nmc)
@@ -323,4 +474,96 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
         log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"])
 
 
-__all__ = ["lnpost_batch", "draw_noise", "selection_size", "Noise"]
+def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
+                parallax_err=None, feh=None, loga=None, dust_profile=None,
+                global_idx=None, cfg: PosteriorConfig = PosteriorConfig(),
+                gal_cfg: GalPriorConfig = GalPriorConfig(),
+                dust_cfg: DustPriorConfig = DustPriorConfig(),
+                apply_av_prior=True, lngalprior=None, lndustprior=None):
+    """Posterior weights and `(dist, Av, Rv)` draws for a batch of stars,
+    with the MC integration in plain PyTorch (mirrors
+    `posterior.lnpost_grid`, :453-577, with a leading star axis, as the
+    dense engine vmaps it).
+
+    results : `loglike_grid_fused`'s dict, `(B, M)` fields `lnlike,
+    chi2, scale, av, rv`, the 6 `icov_parts` and `ndim (B,)`;
+    lnprior_grid, feh, loga : `(M,)` grid rows shared by every star, or
+    per-star `(B, M)` rows (the funnel's shortlists); global_idx :
+    optional `(B, M)` model -> grid index map of per-star shortlists;
+    coord : (B, 2); dust_profile : `(av_dist (Nd,), av_mean (B, Nd),
+    av_std (B, Nd))`; noise : `z (B, K, 3, n_mc)`, `u`, `gumbel` drawn
+    with `draw_noise(..., grid=True)`.
+
+    Custom priors replace the built-in ones with per-star callables of
+    the JAX package's contract, on torch tensors:
+    `lngalprior(dist, coord, feh=, loga=)` (dist `(K,)` or `(K, n_mc)`,
+    coord `(2,)`, feh and loga `(K,)`/`(K, 1)` or None) and
+    `lndustprior(dist, av, av_dist, av_mean, av_std)`; they are applied
+    over the star axis with `torch.func.vmap`.
+
+    Returns the fields of `lnpost_batch`.
+    """
+    B = results["lnlike"].shape[0]
+    parallax, parallax_err, coord = _star_args(
+        B, results["lnlike"].device, parallax, parallax_err, coord)
+    sel = _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
+                       parallax, parallax_err, dust_profile, cfg, gal_cfg,
+                       dust_cfg, apply_av_prior, lngalprior, lndustprior)
+    lnp_sel, valid = sel["lnp_sel"], sel["valid"]
+    scale_k, av_k, rv_k = sel["scale_k"], sel["av_k"], sel["rv_k"]
+
+    # covariances: stable inverse + PSD repair, on parts (:520-524)
+    cov_p = psd_repair_parts(sel["icov_k"], scale_k, valid, cfg.psd_width,
+                             cfg.psd_max_passes, mvn_eps=cfg.mvn_eps)
+    cov_k = sym3_from_parts(cov_p)
+
+    # MC integration over the (s, Av, Rv) Gaussians (:526-565)
+    l00, l10, l11, l20, l21, l22 = (x[..., None]
+                                    for x in cholesky3_parts(cov_p))
+    z0, z1, z2 = noise.z[:, :, 0], noise.z[:, :, 1], noise.z[:, :, 2]
+    s_mc = scale_k[..., None] + l00 * z0                     # (B, K, Nmc)
+    a_mc = av_k[..., None] + l10 * z0 + l11 * z1
+    r_mc = rv_k[..., None] + l20 * z0 + l21 * z1 + l22 * z2
+    par_mc = torch.sqrt(torch.clamp(s_mc, min=1e-30))
+    dist_mc = 1.0 / par_mc
+    lab = lambda x: None if x is None else x[..., None]
+    lnp_mc = _gal_prior(dist_mc, coord, lab(sel["feh_k"]),
+                        lab(sel["loga_k"]), gal_cfg, lngalprior)
+    if apply_av_prior and dust_profile is not None:
+        lnp_mc = lnp_mc + _dust_prior(dist_mc, a_mc, dust_profile, dust_cfg,
+                                      lndustprior)
+    lnp_mc = lnp_mc + parallax_lnprior(par_mc, parallax[:, None, None],
+                                       parallax_err[:, None, None])
+    inb = ((s_mc >= 1e-20) & (a_mc >= cfg.avlim[0])
+           & (a_mc <= cfg.avlim[1]) & (r_mc >= cfg.rvlim[0])
+           & (r_mc <= cfg.rvlim[1]))
+    lnp_mc = torch.where(inb & torch.isfinite(lnp_mc), lnp_mc,
+                         torch.full_like(lnp_mc, NEG_BIG))
+    n_eff = inb.sum(2)
+    lnp_sel = lnp_sel + torch.logsumexp(lnp_mc, dim=2) - torch.log(
+        torch.clamp(n_eff, min=1).to(lnp_sel.dtype))
+    lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (n_eff > 0),
+                          lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
+    log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"], noise.u,
+                                         cfg.n_draws)
+
+    # weighted categorical resampling (:566-577)
+    nd = idxs.shape[1]
+    take = lambda x: torch.gather(x, 1, idxs)
+    at = lambda x: torch.gather(x, 1, idxs[..., None].expand(
+        B, nd, x.shape[2]))                                  # (B, nd, Nmc)
+    lr = at(lnp_mc)
+    imc = torch.argmax(lr + noise.gumbel, dim=2, keepdim=True)
+    pick = lambda x: torch.gather(at(x), 2, imc)[..., 0]
+    cov_sar = torch.gather(cov_k, 1, idxs[..., None, None].expand(
+        B, nd, 3, 3))
+    return dict(
+        model_idx=take(sel["sel_gidx"]), scale=take(scale_k),
+        av=take(av_k), rv=take(rv_k), cov_sar=cov_sar,
+        lnprob=take(lnp_sel), dist=pick(dist_mc), red=pick(a_mc),
+        dred=pick(r_mc), logwt=torch.gather(lr, 2, imc)[..., 0],
+        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"])
+
+
+__all__ = ["lnpost_batch", "lnpost_grid", "draw_noise", "selection_size",
+           "Noise"]

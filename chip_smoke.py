@@ -2,34 +2,54 @@
 """Smoke run of `brutus_tpu_torch` on one NVIDIA H100.
 
     python3 chip_smoke.py               # the card run (needs one CUDA card)
-    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-5 on the CPU
+    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-7 on the CPU
+    python3 chip_smoke.py --profile     # where each fit path's time goes
 
 Phases, each printing one line with its elapsed seconds:
 
 1. the card's name and power limit (`nvidia-smi`);
-2. build of the four CUDA kernels (one nvcc call, `build/kernels/`);
-3. each kernel against its plain PyTorch version on the card, at the
-   widths of the main path: K2 screen (750k models, 8 stars), K3 slab
-   gather and K1 fit (128 stars, 12288-model shortlists), K4 MC
-   integration (16 stars, 2048 models, shared normals), with the
-   deviation, the tolerance and the times of kernel, plain version,
-   library call (where one exists) and bound;
-4. the main path: `BruteForce.fit` (funnel engine) on a 750,000-model,
-   8-band correlated grid, 512 stars in 4 batches of 128, with parallax,
-   Galactic and dust priors, checked for finite outputs, true-model
-   recall and distance bias, timed as stars/s;
-5. a `kernels` JSON line: each kernel's launches during phase 4 (each
-   must be > 0) and its phase-3 deviation and times.
+2. build of the CUDA kernels (one nvcc call, `build/kernels/`);
+3. each kernel, in each of its modes, against its plain PyTorch
+   version on the card, at the widths of the main paths: K2 screen
+   (750k models, 8 stars), K3 slab gather and K1 fit (128 stars,
+   12288-model shortlists), K1 in dense mode (16 stars x 750,080
+   models), K4 MC integration with fed normals and with its own
+   random numbers (16 stars, 2048 models), with the deviation, the
+   tolerance and the times of kernel, plain version, library call
+   (where one exists) and bound;
+4. the main path: `BruteForce.fit` (funnel engine, K4 making its own
+   normals, the default) on a 750,000-model, 8-band correlated grid,
+   512 stars in 4 batches of 128, with parallax, Galactic and dust
+   priors, checked for finite outputs, true-model recall and distance
+   bias, timed as stars/s;
+5. the funnel with fed normals (`PosteriorConfig.kernel_rng=False`),
+   64 stars;
+6. the dense path: `BruteForce.fit(screen_k=0)` on the same grid (K1
+   in dense mode over all 750,080 padded models, then `lnpost_grid`),
+   256 stars in batches of 16, timed as stars/s;
+7. a `kernels` JSON line: each kernel's launches during the path that
+   runs it (phase 4, 5 or 6; each must be > 0) and its phase-3
+   deviation and times.
 
 Any failure exits non-zero.  The last line of a card run is the device
-record `{"ok": true, "device": {...}}`.  The script imports nothing of
+record `{"ok": true, "device": {...}}`.
+
+`--profile` runs none of these phases.  On the card, at the same grid
+and fit settings, it prints the host set-up each `fit` call repeats,
+warm fits timed in turns (funnel / funnel with fed normals / funnel
+with fed normals / funnel at 512 stars, dense twice at 256, then the
+funnel at 4096), per path a `torch.profiler` trace of one warm fit
+(device time by kernel, busy time, idle share), and each hand-written
+kernel's launches x (ms - bound) on the path that runs it, the order
+in which kernel redesigns would win the most time back; the last line
+is one JSON object with these numbers.  The script imports nothing of
 JAX nor of the JAX package; its grid generator is its own copy of the
 correlated lattice the repository's JAX benchmark uses.
 """
 
 import argparse
+import dataclasses
 import json
-import math
 import subprocess
 import sys
 import time
@@ -134,6 +154,50 @@ def bound(nbytes, ops):
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
 
 
+# Each kernel's bound, `(ms, "bytes" | "operations")`, from its shapes:
+# every input read once and every output written once, and the float32
+# operations its inputs need.
+def screen_bound(B, Mp, F, block):
+    return bound(4 * (3 * F * Mp + Mp + B * Mp // block + B * (2 * F + 5)),
+                 B * Mp * (30 * F + 70))
+
+
+def gather_bound(C, B, P, nb):
+    return bound(4 * (2 * C * B * P + B * nb), 0)
+
+
+def fit_ops_per_model(F, mag_iters=6, flux_iters=6):
+    """Float32 operations of K1 per (star, model): the seed, the
+    magnitude-space solves, the flux-space updates and expansions."""
+    iters = mag_iters + flux_iters
+    return F * (27 + 12 * mag_iters + 36 * (iters + 2)) + 400
+
+
+def fit_bound(B, P, C, F, n_rows):
+    return bound(4 * (C * B * P + B * P + n_rows * B * P),
+                 B * P * fit_ops_per_model(F))
+
+
+def fit_dense_bound(B, Mp, F):
+    return bound(4 * (3 * F * Mp + 11 * B * Mp + B * (4 * F + 3)),
+                 B * Mp * fit_ops_per_model(F))
+
+
+def mc_bound(B, K, n_rows, nmc, active, rng):
+    """K4 over `active` (star, model) columns of active tiles; the fed
+    mode reads the normals, the random-number mode does ~110 more
+    operations per real draw (Philox and Box-Muller, counted at the
+    float32 rate)."""
+    nmcp = -(-nmc // 8) * 8
+    nbytes = 4 * (B * (n_rows + 1) * K + 4 * B * nmcp * K + 8 * B * K)
+    draw_ops = 200 * nmcp
+    if rng:
+        draw_ops += 110 * nmc
+    else:
+        nbytes += 4 * B * 3 * nmcp * K
+    return bound(nbytes, active * (draw_ops + 8 * 100))
+
+
 def nvidia_smi():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,13 +250,35 @@ def fit_deviation(k, q, gidx, n_real, tile):
         crowd=(off.sum((0, 1)) / n_pos).max().item())
 
 
+def report_fit(what, dev1, ms, pms, bms, by, t0):
+    """Print a K1 check against `K1_TOL` (lnlike within 0.02 nats near
+    the best) and fail if it is off."""
+    err, tol = dev1["near"], 0.02
+    ok = (err <= tol and dev1["all"] <= K1_TOL["all"]
+          and max(dev1["cap"]) <= K1_TOL["cap"]
+          and dev1["frac"] <= K1_TOL["frac"]
+          and dev1["crowd"] <= K1_TOL["crowd"])
+    log(f"{what}: max |dev| of lnlike within 20 nats of the best {err:.4g} "
+        f"(tol {tol}), over all models {dev1['all']:.4g} relative (tol "
+        f"{K1_TOL['all']}); per field max |dev| / (|plain| + median "
+        f"|plain|) {', '.join(f'{c:.3g}' for c in dev1['cap'])} (tol "
+        f"{K1_TOL['cap']}); fields off by >1e-3 of that {dev1['frac']:.3e} "
+        f"(tol {K1_TOL['frac']}), models with one at the most crowded "
+        f"window position {dev1['crowd']:.3g} (tol {K1_TOL['crowd']}); "
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})"
+        f"  [{time.time() - t0:.1f} s]")
+    if not ok:
+        raise AssertionError(f"{what} disagrees with its plain version")
+
+
 def phase_kernels(mc, labels, dev, results):
     """Phase 3: each kernel against its plain version on the card."""
     from brutus_tpu_torch.config import (FitConfig, PosteriorConfig,
                                          GalPriorConfig, DustPriorConfig)
     from brutus_tpu_torch.convert import from_numpy_grid
-    from brutus_tpu_torch.ops import funnel as TF, mc as TMC
-    from brutus_tpu_torch.ops import posterior as TP
+    from brutus_tpu_torch.dustmap import uniform_profile
+    from brutus_tpu_torch.ops import fit as TFD, funnel as TF, mc as TMC
+    from brutus_tpu_torch.ops import posterior as TP, rng
     cfg = FitConfig()
     M, F, _ = mc.shape
     tabs = from_numpy_grid(mc, labels, device=dev)
@@ -226,9 +312,7 @@ def phase_kernels(mc, labels, dev, results):
     tol = tol.max().item()
     ms = cuda_ms(lambda: TF.screen_blocks(*a8), 20)
     pms = cuda_ms(lambda: TF.screen_blocks_plain(*a8), 5)
-    ops = 8 * Mp * (30 * F + 70)
-    nbytes = 4 * (3 * F * Mp + Mp + 8 * Mp // block + 8 * (2 * F + 5))
-    bms, by = bound(nbytes, ops)
+    bms, by = screen_bound(8, Mp, F, block)
     results["screen"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                              bound_ms=bms, bound_by=by, library_ms=None)
     log(f"phase 3 K2 screen (8 stars x {M} models): max |dev| {err:.4g} "
@@ -253,7 +337,7 @@ def phase_kernels(mc, labels, dev, results):
     flat = (bidx.long()[:, :, None] * block + torch.arange(
         block, device=dev)).reshape(-1)
     lms = cuda_ms(lambda: tabs.table[:, flat], 20)
-    bms, by = bound(4 * (2 * C * 128 * P + 128 * nb), 0)
+    bms, by = gather_bound(C, 128, P, nb)
     results["gather"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                              bound_ms=bms, bound_by=by, library_ms=lms)
     log(f"phase 3 K3 gather (128 stars x {P}): max |dev| {err:.4g} "
@@ -264,58 +348,54 @@ def phase_kernels(mc, labels, dev, results):
         raise AssertionError("K3 gather is not exact")
 
     t0 = time.time()
-    coef = k
     star4 = torch.stack([fp, wf, mg, wm], 1).contiguous()
-    nd = ndim.to(torch.float32)
-    half = (nd - 3.0) / 2.0
-    srow3 = torch.stack([-0.5 * (nd * math.log(2 * math.pi)
-                                 + torch.log(tv).sum(1)),
-                         -(half * math.log(2.0) + torch.lgamma(half)),
-                         half - 1.0], 1).contiguous()
-    args = (star4, coef, idx.contiguous(), srow3, 3, 15, tabs.n_real, 512,
-            cfg)
-    k = TF.fit_pack(*args)
+    args = (star4, k, idx.contiguous(), TF.post_consts(mk, ndim, tv), 3, 15,
+            tabs.n_real, 512, cfg)
+    pack = TF.fit_pack(*args)
     q = TF.fit_pack_plain(*args)
-    dev1 = fit_deviation(k, q, idx, tabs.n_real, 512)
-    err, tol = dev1["near"], 0.02
-    ok = (err <= tol and dev1["all"] <= K1_TOL["all"]
-          and max(dev1["cap"]) <= K1_TOL["cap"]
-          and dev1["frac"] <= K1_TOL["frac"]
-          and dev1["crowd"] <= K1_TOL["crowd"])
+    dev1 = fit_deviation(pack, q, idx, tabs.n_real, 512)
+    del q
     ms = cuda_ms(lambda: TF.fit_pack(*args), 10)
     pms = cuda_ms(lambda: TF.fit_pack_plain(*args), 3)
-    iters = cfg.kernel_mag_iters + cfg.kernel_flux_iters
-    ops = 128 * P * (F * (27 + 12 * cfg.kernel_mag_iters
-                          + 36 * (iters + 2)) + 400)
-    bms, by = bound(4 * (C * 128 * P + 128 * P + 15 * 128 * P), ops)
-    results["fit"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+    bms, by = fit_bound(128, P, C, F, 15)
+    results["fit"] = dict(max_abs_err=dev1["near"], ms=ms, plain_ms=pms,
                           bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"phase 3 K1 fit (128 stars x {P}): max |dev| of lnlike within "
-        f"20 nats of the best {err:.4g} (tol {tol}), over all models "
-        f"{dev1['all']:.4g} relative (tol {K1_TOL['all']}); per field "
-        f"max |dev| / (|plain| + median |plain|) "
-        f"{', '.join(f'{c:.3g}' for c in dev1['cap'])} (tol "
-        f"{K1_TOL['cap']}); fields off by >1e-3 of that {dev1['frac']:.3e} "
-        f"(tol {K1_TOL['frac']}), models with one at the most crowded "
-        f"window position {dev1['crowd']:.3g} (tol {K1_TOL['crowd']}); "
-        f"kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
-        f"[{time.time() - t0:.1f} s]")
-    if not ok:
-        raise AssertionError("K1 fit disagrees with its plain version")
+    report_fit(f"phase 3 K1 fit (128 stars x {P})", dev1, ms, pms, bms, by,
+               t0)
 
-    # K4 at 16 stars x 2048 selected models, from the select stage
+    # K1 in dense mode at 16 stars x every model of the grid
+    t0 = time.time()
+    coeffs, n_real = TFD.prepare_coeffs(mc, tile=512, device=dev)
+    Mpd = coeffs.shape[2]
+    b16 = slice(0, 16)
+    dargs = (star4[b16].contiguous(), coeffs,
+             TF.post_consts(mk[b16], ndim[b16], tv[b16]), n_real, 512, cfg)
+    k = TFD.fit_dense(*dargs)
+    q = TFD.fit_dense_plain(*dargs)
+    dev1 = fit_deviation(k.transpose(0, 1), q.transpose(0, 1),
+                         torch.arange(Mpd, device=dev).expand(16, Mpd),
+                         n_real, 512)
+    del k, q
+    ms = cuda_ms(lambda: TFD.fit_dense(*dargs), 10)
+    pms = cuda_ms(lambda: TFD.fit_dense_plain(*dargs), 2)
+    bms, by = fit_dense_bound(16, Mpd, F)
+    results["fit_dense"] = dict(max_abs_err=dev1["near"], ms=ms,
+                                plain_ms=pms, bound_ms=bms, bound_by=by,
+                                library_ms=None)
+    report_fit(f"phase 3 K1 dense (16 stars x {Mpd} models)", dev1, ms, pms,
+               bms, by, t0)
+
+    # K4 at 16 stars x 2048 selected models, from the select stage, in
+    # both modes
     t0 = time.time()
     pcfg = PosteriorConfig()
-    b16 = slice(0, 16)
     names = TF.pack_row_names(tabs.aux_names)
     dmap = smoke_dustmap()
     dd, dm, ds = dmap.query((s["coords"][b16, 0], s["coords"][b16, 1]))
-    from brutus_tpu_torch.dustmap import uniform_profile
     dd, dm, ds = uniform_profile(dd, dm, ds, n=TMC.NL_PAD)
     prof = (t(dd), t(dm), t(ds))
     coord = t(s["coords"][b16])
-    sel = TP._select_stage(k[b16].contiguous(), names, ndim[b16], coord,
+    sel = TP._select_stage(pack[b16].contiguous(), names, ndim[b16], coord,
                            t(s["plx"][b16]), t(s["plxe"][b16]), prof, pcfg,
                            GalPriorConfig(), DustPriorConfig(), True)
     scal, dust = TP._star_scalars(coord, t(s["plx"][b16]),
@@ -323,16 +403,16 @@ def phase_kernels(mc, labels, dev, results):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     K = sel["table"].shape[2]
-    noise = TP.draw_noise(gen, 16, K, pcfg, dev)
+    nmc, nmcp = pcfg.n_mc_prior, TMC.nmc_pad_of(pcfg.n_mc_prior)
+    z = TP.draw_noise(gen, 16, K, dataclasses.replace(
+        pcfg, kernel_rng=False), dev).z
+    seeds = TP.draw_noise(gen, 16, K, pcfg, dev).seeds
     valid = sel["valid"].to(torch.float32)
     rm = TP._pack_row_map(names)
     cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
-    ka = (sel["table"], rm, valid, scal, dust, noise.z, pcfg.n_mc_prior,
-          512)
-    kk = TMC.mc_integrate(*ka, *cf)
+    base = (sel["table"], rm, valid, scal, dust)
     flags = TMC.tile_flags(valid > 0.5, 512)
-    pa = ka[:6] + (flags, pcfg.n_mc_prior, 512)
-    qq = TMC.mc_integrate_plain(*pa, *cf)
+    active = flags.repeat_interleave(512, 1).sum().item()
     # Compared on valid models whose precision is positive definite: the
     # fixed-pass PSD repair of indefinite ones is chaotic in float32.
     from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
@@ -340,53 +420,81 @@ def phase_kernels(mc, labels, dev, results):
     pd = is_psd3_parts(inverse3_sym_parts(tuple(
         tab[:, rm[3 + j]] for j in range(6))))
     v = (valid > 0.5) & pd
-    dl = (kk[4][:, 0] - qq[4][:, 0]).abs()[v]
-    err = dl.max().item()
-    # The log-integral per model within 1e-3 relative (absolute below
-    # 1); every output within rtol = atol = 1e-3.
-    rel_l = (dl / qq[4][:, 0][v].abs().clamp(min=1.0)).max().item()
-    n_far = sum(int((~torch.isclose(a, b, rtol=1e-3, atol=1e-3))[
-        v[:, None, :].expand_as(a)].sum()) for a, b in zip(kk, qq))
-    ms = cuda_ms(lambda: TMC.mc_integrate(*ka, *cf), 20)
-    pms = cuda_ms(lambda: TMC.mc_integrate_plain(*pa, *cf), 5)
-    nmcp = noise.z.shape[2]
-    active = flags.repeat_interleave(512, 1).sum().item()
-    ops = active * (nmcp * 200 + 8 * 100)
-    nbytes = 4 * (16 * (15 + 1) * K + 16 * 3 * nmcp * K
-                  + 4 * 16 * nmcp * K + 8 * 16 * K)
-    bms, by = bound(nbytes, ops)
-    results["mc"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                         bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"phase 3 K4 mc (16 stars x {K}, {int(v.sum())} valid positive-"
-        f"definite models): max |dev| of the MC log-integral {err:.4g}, "
-        f"relative to max(1, |plain|) {rel_l:.3g} (tol 1e-3), outputs "
-        f"outside rtol = atol = 1e-3 {n_far} (tol 0), "
-        f"kernel {ms:.3f} ms, "
-        f"plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
-        f"[{time.time() - t0:.1f} s]")
-    if not (rel_l <= 1e-3 and n_far == 0):
-        raise AssertionError("K4 MC disagrees with its plain version")
+    modes = (("mc_fed", "fed normals", z, None, lambda: z),
+             ("mc_rng", "in-kernel Philox normals", None, seeds,
+              lambda: rng.normals(seeds, K, nmc, nmcp)))
+    for name, what, zk, sk, plain_z in modes:
+        t0 = time.time()
+        run = lambda: TMC.mc_integrate(*base, zk, nmc, 512, *cf, seeds=sk)
+        plain = lambda: TMC.mc_integrate_plain(*base, plain_z(), flags, nmc,
+                                               512, *cf)
+        kk, qq = run(), plain()
+        dl = (kk[4][:, 0] - qq[4][:, 0]).abs()[v]
+        err = dl.max().item()
+        # The log-integral per model within 1e-3 relative (absolute
+        # below 1); every output within rtol = atol = 1e-3.
+        rel_l = (dl / qq[4][:, 0][v].abs().clamp(min=1.0)).max().item()
+        n_far = sum(int((~torch.isclose(a, b, rtol=1e-3, atol=1e-3))[
+            v[:, None, :].expand_as(a)].sum()) for a, b in zip(kk, qq))
+        del kk, qq
+        ms = cuda_ms(run, 20)
+        pms = cuda_ms(plain, 5)
+        bms, by = mc_bound(16, K, tab.shape[1], nmc, active,
+                           rng=sk is not None)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, library_ms=None)
+        log(f"phase 3 K4 mc, {what} (16 stars x {K}, {int(v.sum())} valid "
+            f"positive-definite models): max |dev| of the MC log-integral "
+            f"{err:.4g}, relative to max(1, |plain|) {rel_l:.3g} (tol "
+            f"1e-3), outputs outside rtol = atol = 1e-3 {n_far} (tol 0), "
+            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+            f"({by})  [{time.time() - t0:.1f} s]")
+        if not (rel_l <= 1e-3 and n_far == 0):
+            raise AssertionError(f"K4 MC ({what}) disagrees with its plain "
+                                 f"version")
 
 
-def phase_main(mc, labels, dev, n_star, batch, tiny):
-    """Phase 4: BruteForce.fit on the funnel engine."""
-    from brutus_tpu_torch import BruteForce
+def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True):
+    """One `BruteForce.fit` of the stars `s`: the funnel (`screen_k`
+    below the grid size) or the dense engine (`screen_k=0`).
+    `kernel_rng=False` switches the funnel's MC kernel to fed normals
+    through `PosteriorConfig`, as the JAX package's drive recipe
+    switches its own flags.  Returns the results, the seconds to the
+    final synchronise, and the launch counts of this fit alone."""
+    import functools
+    from brutus_tpu_torch import fitting
     from brutus_tpu_torch.ops import _native
-    s = stars(mc, n_star)
     kw = dict(parallax=s["plx"], parallax_err=s["plxe"],
               data_coords=s["coords"], dustmap=smoke_dustmap(),
-              batch_size=batch, screen_k=1024 if tiny else 12288,
-              screen_block=256, n_sel_max=256 if tiny else 2048,
-              Nmc_prior=50, Ndraws=250, save_file=None, verbose=False,
-              return_results=True)
-    bf = BruteForce(mc, labels, device=dev)
-    _native.reset_launches()
-    t0 = time.time()
-    out = bf.fit(s["flux"], s["err"], np.ones(s["flux"].shape, bool), **kw)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    dt = time.time() - t0
-    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+              batch_size=batch, screen_k=screen_k, screen_block=256,
+              n_sel_max=n_sel_max, Nmc_prior=50, Ndraws=250, tile=512,
+              save_file=None, verbose=False, return_results=True)
+    post_cfg = fitting.PosteriorConfig
+    fitting.PosteriorConfig = functools.partial(post_cfg,
+                                                kernel_rng=kernel_rng)
+    try:
+        _native.reset_launches()
+        t0 = time.time()
+        out = bf.fit(s["flux"], s["err"], np.ones(s["flux"].shape, bool),
+                     **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    finally:
+        fitting.PosteriorConfig = post_cfg
+    return out, dt, launches
+
+
+def phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel_max,
+              kernel_rng=True):
+    """A cold `fit_stars` of `n_star` stars, checked: finite outputs of
+    the expected shapes and a median distance bias below 25%."""
+    from brutus_tpu_torch import BruteForce
+    s = stars(mc, n_star)
+    out, dt, launches = fit_stars(BruteForce(mc, labels, device=dev), s,
+                                  dev, batch, screen_k, n_sel_max,
+                                  kernel_rng)
     for key, v in out.items():
         if v.dtype.kind == "f" and not np.isfinite(v).all():
             raise AssertionError(f"non-finite values in {key}")
@@ -401,15 +509,155 @@ def phase_main(mc, labels, dev, n_star, batch, tiny):
         raise AssertionError(f"posterior distances are off: median "
                              f"bias {bias:+.3f}")
     return dict(seconds=dt, stars_per_s=n / dt, recall=recall,
-                dist_bias=bias, dist_p90=p90, launches=launches)
+                dist_bias=bias, dist_p90=p90, launches=launches,
+                finite_evidence=float(np.isfinite(out["log_evidence"]).mean()))
+
+
+# --profile: the fit paths, their settings and the kernels each runs,
+# with their bounds at that path's shapes (750,080 padded models,
+# 8 bands; funnel batches of 128 with 48 blocks of 256 per star,
+# 27 table rows, a 15-row pack and 2048 selected models; dense batches
+# of 16).
+PATHS = {
+    "funnel": dict(batch=128, screen_k=12288, kernel_rng=True, n=512),
+    "funnel_fed": dict(batch=128, screen_k=12288, kernel_rng=False, n=512),
+    "dense": dict(batch=16, screen_k=0, kernel_rng=True, n=256),
+}
+PATH_KERNELS = {
+    ("funnel", "screen_kernel"): ("screen", lambda: screen_bound(
+        128, 750_080, 8, 256)),
+    ("funnel", "gather_kernel"): ("gather", lambda: gather_bound(
+        27, 128, 12288, 48)),
+    ("funnel", "fit_kernel"): ("fit", lambda: fit_bound(
+        128, 12288, 27, 8, 15)),
+    ("funnel", "mc_kernel"): ("mc_rng", lambda: mc_bound(
+        128, 2048, 15, 50, 128 * 2048, rng=True)),
+    ("funnel_fed", "mc_kernel"): ("mc_fed", lambda: mc_bound(
+        128, 2048, 15, 50, 128 * 2048, rng=False)),
+    ("dense", "fit_kernel"): ("fit_dense", lambda: fit_dense_bound(
+        16, 750_080, 8)),
+}
+
+
+def profile_path(bf, s, dev, path, quiet=False):
+    """Device busy time, idle share, the top device events and the
+    hand-written kernels' launches, ms and lost time of one warm fit of
+    `path` under `torch.profiler`."""
+    p = PATHS[path]
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.time()
+    with torch.profiler.profile(activities=act) as prof:
+        fit_stars(bf, s, dev, p["batch"], p["screen_k"], 2048,
+                  p["kernel_rng"])
+    wall = time.time() - t0
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    # Device-side events only (kernels and copies): the host operators
+    # that launched them carry the same time again.
+    cuda_type = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda_type
+              and dev_us(e) > 0]
+    if quiet or not events:
+        return None
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:10]
+    kernels = {}
+    for (kp, key), (name, kbound) in PATH_KERNELS.items():
+        hits = [e for e in events if kp == path and key in e.key]
+        if hits:
+            n = sum(e.count for e in hits)
+            ms = sum(dev_us(e) for e in hits) / 1e3 / n
+            bms, by = kbound()
+            kernels[name] = dict(launches=n, ms=ms, bound_ms=bms,
+                                 bound_by=by, lost_ms=n * (ms - bms))
+    log(f"profiled {path} fit of {len(s['idx'])} stars: wall {wall:.3f} s, "
+        f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}")
+    for e in top:
+        log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
+                top_device_ms={e.key[:60]: dev_us(e) / 1e3 for e in top},
+                kernels=kernels)
+
+
+def profile_main(dev):
+    """`--profile`: where the time of each fit path goes (module
+    docstring)."""
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.convert import (default_grid_lnprior,
+                                          dense_tables, from_numpy_grid)
+    card = nvidia_smi()
+    log(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc, labels = correlated_grid(750_000, 8)
+    t0 = time.time()
+    lnp = default_grid_lnprior(labels)
+    setup = dict(prior_s=time.time() - t0)
+    for name, build in (("funnel_tables_s", from_numpy_grid),
+                        ("dense_tables_s", dense_tables)):
+        t0 = time.time()
+        build(mc, labels, device=dev, lnprior=lnp)
+        torch.cuda.synchronize()
+        setup[name] = time.time() - t0
+    log(f"host set-up per fit call: {setup}")
+
+    bf = BruteForce(mc, labels, device=dev)
+    s = {n: stars(mc, n) for n in (256, 512)}
+    seconds = lambda path, st: fit_stars(
+        bf, st, dev, PATHS[path]["batch"], PATHS[path]["screen_k"], 2048,
+        PATHS[path]["kernel_rng"])[1]
+    for path, p in PATHS.items():                   # warm-up
+        seconds(path, s[p["n"]])
+    rates = {path: [] for path in PATHS}
+    for path in ("funnel", "funnel_fed", "funnel_fed", "funnel", "dense",
+                 "dense"):
+        n = PATHS[path]["n"]
+        rates[path].append(n / seconds(path, s[n]))
+    log(f"warm fits, stars/s in turns: {rates}")
+    n_big = 4096
+    big = n_big / seconds("funnel", stars(mc, n_big, seed=8))
+    log(f"funnel fit of {n_big} stars: {big:.1f} stars/s")
+
+    # The profiler's first window carries its own start-up (seconds of
+    # wall): profile once untimed.
+    profile_path(bf, s[512], dev, "funnel", quiet=True)
+    prof = {path: profile_path(bf, s[p["n"]], dev, path)
+            for path, p in PATHS.items()}
+    if any(v is None for v in prof.values()):
+        log("profiler recorded no device time: breakdown not measured")
+        return 1
+    order = sorted(((k, v) for p in prof.values()
+                    for k, v in p["kernels"].items()),
+                   key=lambda kv: -kv[1]["lost_ms"])
+    log("kernels by launches x (ms - bound) on their path:")
+    for k, v in order:
+        log(f"  {k:10s} {v['launches']:3d} x ({v['ms']:.4f} - "
+            f"{v['bound_ms']:.4f} ms, {v['bound_by']}) = "
+            f"{v['lost_ms']:.3f} ms")
+    log(json.dumps(dict(card=card, setup=setup, stars_per_s=rates,
+                        funnel_big_stars=n_big, funnel_big_stars_per_s=big,
+                        profiles=prof)))
+    return 0
+
+
+# The phase whose run each kernel's launches are read from.
+KERNEL_PHASE = dict(screen=4, gather=4, fit=4, mc_rng=4, mc_fed=5,
+                    fit_dense=6)
+# Phase 4 as first ported, with fed normals (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md).
+FIRST_STARS_PER_S = "813.8 to 1111.7 stars/s over three card runs"
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 4-5 on the CPU (plain versions)")
+                    help="rehearse phases 4-7 on the CPU (plain versions)")
     ap.add_argument("--tiny", action="store_true",
                     help="a 4096-model grid and 16 stars")
+    ap.add_argument("--profile", action="store_true",
+                    help="time and profile each fit path on the card "
+                         "instead of the smoke phases")
     args = ap.parse_args()
     t_all = time.time()
     if args.cpu:
@@ -420,6 +668,8 @@ def main():
                   "rehearse on the CPU)", file=sys.stderr)
             return 1
         dev = torch.device("cuda")
+        if args.profile:
+            return profile_main(dev)
     from brutus_tpu_torch.ops import _native
     card = None
     if dev.type == "cuda":
@@ -449,31 +699,56 @@ def main():
     if dev.type == "cuda":
         phase_kernels(mc, labels, dev, results)
 
+    runs = {}
     t0 = time.time()
     n_star, batch = (16, 8) if args.tiny else (512, 128)
-    r = phase_main(mc, labels, dev, n_star, batch, args.tiny)
-    log(f"phase 4 main path: BruteForce.fit, {M} models x 8 bands x "
-        f"{n_star} stars in batches of {batch}: {r['stars_per_s']:.1f} "
-        f"stars/s (kernels as first written), true model among the "
-        f"draws for {r['recall']:.3f} of the stars, median distance bias "
+    screen_k, n_sel = (1024, 256) if args.tiny else (12288, 2048)
+    r = runs[4] = phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel)
+    log(f"phase 4 main path: BruteForce.fit, funnel, in-kernel draws, {M} "
+        f"models x 8 bands x {n_star} stars in batches of {batch}: "
+        f"{r['stars_per_s']:.1f} stars/s (as first ported, fed normals: "
+        f"{FIRST_STARS_PER_S}), true model among the draws for "
+        f"{r['recall']:.3f} of the stars, median distance bias "
         f"{r['dist_bias']:+.4f}, p90 |bias| {r['dist_p90']:.4f}, "
         f"launches {r['launches']}  [{time.time() - t0:.1f} s]")
+
+    t0 = time.time()
+    n_fed = 8 if args.tiny else 64
+    r = runs[5] = phase_fit(mc, labels, dev, n_fed, batch, screen_k, n_sel,
+                            kernel_rng=False)
+    log(f"phase 5 funnel, fed normals: {n_fed} stars, "
+        f"{r['stars_per_s']:.1f} stars/s, median distance bias "
+        f"{r['dist_bias']:+.4f}, launches {r['launches']}  "
+        f"[{time.time() - t0:.1f} s]")
+
+    t0 = time.time()
+    n_dense, batch_d = (16, 8) if args.tiny else (256, 16)
+    r = runs[6] = phase_fit(mc, labels, dev, n_dense, batch_d, 0, n_sel)
+    log(f"phase 6 dense path: BruteForce.fit(screen_k=0), {M} models x 8 "
+        f"bands x {n_dense} stars in batches of {batch_d}: "
+        f"{r['stars_per_s']:.1f} stars/s, median distance bias "
+        f"{r['dist_bias']:+.4f}, p90 |bias| {r['dist_p90']:.4f}, finite "
+        f"log-evidences {r['finite_evidence']:.3f}, launches "
+        f"{r['launches']}  [{time.time() - t0:.1f} s]")
 
     kernels = []
     for name, k in _native.KERNELS.items():
         entry = dict(name=name, route="cuda", source=k.source,
-                     replaces=k.replaces, launches=r["launches"][name])
+                     replaces=k.replaces,
+                     launches=runs[KERNEL_PHASE[name]]["launches"][name])
         entry.update(results.get(name, {}))
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     if dev.type == "cpu":
-        log(f"phase 5 rehearsal done on the CPU (plain versions; no kernel "
+        log(f"phase 7 rehearsal done on the CPU (plain versions; no kernel "
             f"launched)  [{time.time() - t_all:.1f} s total]")
         return 0
     missing = [e["name"] for e in kernels if e["launches"] <= 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing} kernel")
-    log(f"phase 5 every kernel ran on the main path  "
+        raise AssertionError(f"no launch of {missing} on its path")
+    if runs[4]["launches"]["mc_fed"] or runs[5]["launches"]["mc_rng"]:
+        raise AssertionError("K4 ran in the wrong mode")
+    log(f"phase 7 every kernel ran on its path  "
         f"[{time.time() - t_all:.1f} s total]")
     log(nvidia_smi())
     log(json.dumps({"ok": True, "device": {

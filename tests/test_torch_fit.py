@@ -2,7 +2,8 @@
 with the kernels' plain versions) against `brutus_tpu.BruteForce.fit`
 and the float64 oracle, on the correlated grid of
 `test_fitting.py::test_production_composition_matches_oracle`; the
-options this slice does not port; and the card-free import."""
+options the port does not have yet; and the card-free import.  The
+dense engine on the same problem: `test_torch_dense.py`."""
 
 import os
 import subprocess
@@ -164,9 +165,7 @@ NOT_PORTED = {
     "mesh": dict(mesh=object()),
     "scan_batches": dict(scan_batches=2),
     "lnprior_ext": dict(lnprior_ext={"feh": np.zeros((2, 2))}),
-    "custom_prior": dict(lngalprior=lambda *a, **k: 0.0),
     "resume": dict(resume=True),
-    "dense": dict(screen_k=0),
     "ltol": dict(ltol=1e-2),
     "ltol_subthresh": dict(ltol_subthresh=1e-3),
     "mag_space_init": dict(mag_direct_init=False),
@@ -191,8 +190,9 @@ def test_unported_options_raise(case):
 
 def test_card_free_import_and_cpu_rehearsal():
     """With jax, h5py and brutus_tpu made unimportable, the package
-    imports and `chip_smoke.py --cpu --tiny` runs its main path to the
-    end (no module of the card path needs them)."""
+    imports and `chip_smoke.py --cpu --tiny` runs its funnel paths and
+    its dense path to the end (no module of the card path needs
+    them)."""
     code = (
         "import sys, runpy\n"
         "for m in ('jax', 'h5py', 'brutus_tpu'):\n"
@@ -208,4 +208,6 @@ def test_card_free_import_and_cpu_rehearsal():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "phase 4 main path" in r.stdout
+    assert "phase 5 funnel, fed normals" in r.stdout
+    assert "phase 6 dense path" in r.stdout
     assert '"platform": "gpu"' not in r.stdout

@@ -1,6 +1,7 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
-a CUDA card.  Every test here carries the `gpu` marker and skips where
-no card is present (the check runs inside each test, never at import).
+"""The port's CUDA kernels, in each of their modes, against their plain
+PyTorch versions, on a CUDA card.  Every test here carries the `gpu`
+marker and skips where no card is present (the check runs inside each
+test, never at import).
 
 The module imports no jax, so it also runs on a card machine without
 jax, where `tests/conftest.py` cannot be loaded:
@@ -9,6 +10,8 @@ jax, where `tests/conftest.py` cannot be loaded:
         tests/test_torch_kernels_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +19,8 @@ import torch
 from brutus_tpu_torch.config import (FitConfig, PosteriorConfig,
                                      GalPriorConfig, DustPriorConfig)
 from brutus_tpu_torch.convert import from_numpy_grid
-from brutus_tpu_torch.ops import funnel as TF, mc as TMC, posterior as TP
+from brutus_tpu_torch.ops import fit as TFD, funnel as TF, mc as TMC
+from brutus_tpu_torch.ops import posterior as TP, rng
 from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
 
 pytestmark = pytest.mark.gpu
@@ -52,7 +56,7 @@ def _problem(M, F, B, seed, dev):
     tabs = from_numpy_grid(mc, lab, device=dev,
                            lnprior=rng.uniform(-1, 0, M))
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-    return dict(tabs=tabs, flux=t(flux), err=t(err),
+    return dict(mc=mc, tabs=tabs, flux=t(flux), err=t(err),
                 mask=torch.as_tensor(mask, device=dev), plx=t(1.0 / dist),
                 plxe=t(0.05 / dist))
 
@@ -63,11 +67,13 @@ def test_funnel_kernels_match_plain(cuda, F):
     sum, see test_torch_funnel), K3 exact.  K1's fixed-budget iterations
     branch on float comparisons that rounding in another order can flip,
     so a few models stop at another point of the same fit; the limits
-    sit above the H100 readings of this problem (F=8 / F=49): lnlike
-    within 0.02 nats of the plain value on models within 20 nats of the
-    best (read 3.4e-4 / 8.3e-4); each field within 0.2 of |plain| + the
-    field's median |plain| (read 0.034 / 6.1e-5); at most 0.1% of the
-    fields beyond 1e-3 of that (read 2.1e-4 / 0)."""
+    sit above the H100 readings of this problem (F=8 / F=49) with
+    multiply-add contraction: lnlike within 0.02 nats of the plain value
+    on models within 20 nats of the best (read 3.4e-4 / 8.3e-4); each
+    field within 0.2 of |plain| + the field's median |plain| (read
+    0.034 / 6.1e-5); at most 0.1% of the fields beyond 1e-3 of that
+    (read 2.1e-4 / 0).  The build turns contraction off; F=8 then reads
+    0 for all three."""
     p = _problem(2048 if F == 8 else 1024, F, 6, 3 + F, cuda)
     tabs, cfg = p["tabs"], FitConfig()
     fp, wf, mg, wm, mk, nd, tv = TF.prepare_star_data(
@@ -104,11 +110,38 @@ def test_funnel_kernels_match_plain(cuda, F):
     assert torch.equal(k[:, 11:], q[:, 11:])
 
 
-def test_mc_kernel_matches_plain(cuda):
-    """K4 against its plain version with shared normals: the MC
-    log-integral of positive-definite models in active tiles within 1e-3
-    (relative above 1; the H100 read 2.2e-6), and every one of their
-    outputs within rtol = atol = 1e-3 (the H100 read none outside)."""
+def test_dense_fit_kernel_matches_plain(cuda):
+    """K1 in dense mode against its plain version, on every model of a
+    4000-model grid padded to 4096 for 12 stars (one with half its
+    bands masked), to the limits of the stacked mode above: lnlike
+    within 0.02 nats near the best, each field within 0.2 of |plain| +
+    its median |plain| and at most 0.1% of the fields beyond 1e-3 of
+    that, on real models; the padding masked exactly alike."""
+    p = _problem(4000, 8, 12, 31, cuda)
+    cfg = FitConfig()
+    coeffs, n_real = TFD.prepare_coeffs(p["mc"], tile=512, device=cuda)
+    fp, wf, mg, wm, mk, nd, tv = TF.prepare_star_data(
+        p["flux"], p["err"], p["mask"], cfg)
+    star4 = torch.stack([fp, wf, mg, wm], 1).contiguous()
+    args = (star4, coeffs, TF.post_consts(mk, nd, tv), n_real, 512, cfg)
+    k, q = TFD.fit_dense(*args), TFD.fit_dense_plain(*args)
+    assert torch.equal(k[:2, :, n_real:], q[:2, :, n_real:])
+    k, q = k[:, :, :n_real], q[:, :, :n_real]
+    near = q[0] > q[0].amax(1, keepdim=True) - 20.0
+    qa = q.abs().reshape(11, -1)
+    rel = ((k - q).abs().reshape(11, -1)
+           / (qa + qa.median(1, keepdim=True).values + 1e-30))
+    lnl_dev = (k[0] - q[0]).abs()[near].max().item()
+    frac = (rel > 1e-3).float().mean().item()
+    print(f"K1 dense: lnlike {lnl_dev:.3g}, field {rel.max().item():.3g}, "
+          f"share beyond 1e-3 {frac:.3g}")
+    assert lnl_dev <= 0.02
+    assert rel.max().item() <= 0.2
+    assert frac <= 1e-3
+
+
+def _mc_problem(cuda):
+    """K4's inputs from the select stage of 8 funnel-fit stars."""
     p = _problem(4096, 8, 8, 21, cuda)
     tabs, cfg = p["tabs"], FitConfig()
     res = TF.loglike_grid_screened(
@@ -124,20 +157,20 @@ def test_mc_kernel_matches_plain(cuda):
                            p["plx"], p["plxe"], prof, pcfg,
                            GalPriorConfig(), DustPriorConfig(), True)
     scal, dust = TP._star_scalars(coord, p["plx"], p["plxe"], prof, True)
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(0)
-    K = sel["table"].shape[2]
-    noise = TP.draw_noise(gen, 8, K, pcfg, cuda)
     valid = sel["valid"].to(torch.float32)
     rm = TP._pack_row_map(res["names"])
-    cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
-    args = (sel["table"], rm, valid, scal, dust, noise.z, 50)
-    k = TMC.mc_integrate(*args, 512, *cf)
-    flags = TMC.tile_flags(valid > 0.5, 512)
-    q = TMC.mc_integrate_plain(*args[:6], flags, 50, 512, *cf)
     tab = sel["table"]
     pd = is_psd3_parts(inverse3_sym_parts(tuple(
         tab[:, rm[3 + j]] for j in range(6))))
+    cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
+    return (tab, rm, valid, scal, dust), pd, cf
+
+
+def _assert_mc_close(k, q, valid, pd):
+    """K4 limits: the MC log-integral of positive-definite models in
+    active tiles within 1e-3 (relative above 1), and every one of their
+    outputs within rtol = atol = 1e-3."""
+    flags = TMC.tile_flags(valid > 0.5, 512)
     active = flags.repeat_interleave(512, 1) > 0
     v = active & pd
     assert v.sum().item() > 100
@@ -151,3 +184,33 @@ def test_mc_kernel_matches_plain(cuda):
     assert not far.any()
     for a, b in zip(k, q):
         assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+
+
+def test_mc_kernel_matches_plain(cuda):
+    """K4 with fed normals against its plain version (the H100 read
+    2.2e-6 on the log-integral and none outside 1e-3)."""
+    args, pd, cf = _mc_problem(cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    K = args[0].shape[2]
+    fed = dataclasses.replace(cf[0], kernel_rng=False)
+    z = TP.draw_noise(gen, 8, K, fed, cuda).z
+    k = TMC.mc_integrate(*args, z, 50, 512, *cf)
+    flags = TMC.tile_flags(args[2] > 0.5, 512)
+    q = TMC.mc_integrate_plain(*args, z, flags, 50, 512, *cf)
+    _assert_mc_close(k, q, args[2], pd)
+
+
+def test_mc_kernel_rng_matches_plain(cuda):
+    """K4 in its random-number mode against its plain version, Philox
+    normals (`rng.normals`) then `mc_integrate_plain`, to the same
+    limits."""
+    args, pd, cf = _mc_problem(cuda)
+    K = args[0].shape[2]
+    seeds = torch.tensor([[7 * b + 1, 2 ** 31 - 3 - b] for b in range(8)],
+                         dtype=torch.int32, device=cuda)
+    k = TMC.mc_integrate(*args, None, 50, 512, *cf, seeds=seeds)
+    z = rng.normals(seeds, K, 50, TMC.nmc_pad_of(50))
+    flags = TMC.tile_flags(args[2] > 0.5, 512)
+    q = TMC.mc_integrate_plain(*args, z, flags, 50, 512, *cf)
+    _assert_mc_close(k, q, args[2], pd)

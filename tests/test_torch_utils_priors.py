@@ -238,6 +238,9 @@ def test_config_defaults_match():
         assert port == {k: ref[k] for k in port}, name
         if name.endswith("PriorConfig"):
             assert port == ref, name
+    # K4 makes its own normals by default in both packages
+    assert TCFG.PosteriorConfig().kernel_rng is True
+    assert JCFG.PosteriorConfig().kernel_rng is True
     assert TCFG.LN2PI == JCFG.LN2PI
 
 
