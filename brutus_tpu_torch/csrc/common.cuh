@@ -23,20 +23,63 @@ __device__ __forceinline__ float nclip(float x, float lo, float hi) {
   return nmin(nmax(x, lo), hi);
 }
 
-// NaN-propagating max over the whole thread block; `red` holds
-// blockDim.x floats of shared memory.  Every thread of the block must
-// call it; all of them get the result.
-__device__ __forceinline__ float block_max(float v, float* red) {
-  const int t = threadIdx.x;
-  __syncthreads();
-  red[t] = v;
-  __syncthreads();
-  for (int s = (blockDim.x + 1) / 2, n = blockDim.x; n > 1;
-       n = s, s = (s + 1) / 2) {
-    if (t < n - s) red[t] = nmax(red[t], red[t + s]);
-    __syncthreads();
+// NaN-propagating max over the 32 lanes of a warp; every lane of the
+// warp must call it; all of them get the result.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = nmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Filters a kernel instance handles: a count fixed at compile time
+// (NF > 0: loops over the filters unroll and per-filter arrays stay in
+// registers) or read at run time (NF == 0: arrays of kMaxFilters, in
+// local memory).
+constexpr int kMaxFilters = 64;
+
+template <int NF>
+struct Filters {
+  static constexpr int kCap = NF;
+  __device__ __forceinline__ explicit Filters(int) {}
+  __device__ __forceinline__ int n() const { return NF; }
+};
+
+template <>
+struct Filters<0> {
+  static constexpr int kCap = kMaxFilters;
+  int F;
+  __device__ __forceinline__ explicit Filters(int f) : F(f) {}
+  __device__ __forceinline__ int n() const { return F; }
+};
+
+// Instances of a kernel template for F = 4..16 filters (a star needs
+// four bands), and the run-time instance for any other F: one switch.
+#define BK_FILTER_INSTANCE(KERNEL, F)                       \
+  switch (F) {                                              \
+    case 4: return KERNEL<4>;                               \
+    case 5: return KERNEL<5>;                               \
+    case 6: return KERNEL<6>;                               \
+    case 7: return KERNEL<7>;                               \
+    case 8: return KERNEL<8>;                               \
+    case 9: return KERNEL<9>;                               \
+    case 10: return KERNEL<10>;                             \
+    case 11: return KERNEL<11>;                             \
+    case 12: return KERNEL<12>;                             \
+    case 13: return KERNEL<13>;                             \
+    case 14: return KERNEL<14>;                             \
+    case 15: return KERNEL<15>;                             \
+    case 16: return KERNEL<16>;                             \
+    default: return KERNEL<0>;                              \
   }
-  return red[0];
+
+// A block may use 227 KB of shared memory, above 48 KB only as dynamic
+// shared memory after this attribute is set for the kernel.
+constexpr size_t kMaxShared = 232448;
+
+static inline cudaError_t bk_allow_shared(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 static inline int bk_ceil_div(long long a, long long b) {

@@ -47,7 +47,7 @@ def _not_ported(what, item):
         f"item {item})")
 
 
-def _funnel_step(tables, generator, flux, err, mask, plx, plx_err, coord,
+def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                  dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
                  apply_av_prior, tile, lngalprior=None, lndustprior=None):
     """One batch through the funnel: likelihood, then posterior (K4, or
@@ -59,9 +59,9 @@ def _funnel_step(tables, generator, flux, err, mask, plx, plx_err, coord,
         tile=tile, screen_k=fit_cfg.screen_k,
         screen_block=fit_cfg.screen_block)
     pack, names = res["pack"], res["names"]
-    B, _, P = pack.shape
+    P = pack.shape[2]
     custom = lngalprior is not None or lndustprior is not None
-    noise = draw_noise(generator, B, selection_size(post_cfg, P), post_cfg,
+    noise = draw_noise(seed, rows, selection_size(post_cfg, P), post_cfg,
                        pack.device, grid=custom)
     kw = dict(parallax=plx, parallax_err=plx_err, dust_profile=dust_profile,
               cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
@@ -80,7 +80,7 @@ def _funnel_step(tables, generator, flux, err, mask, plx, plx_err, coord,
                        lngalprior=lngalprior, lndustprior=lndustprior, **kw)
 
 
-def _dense_step(tables, generator, flux, err, mask, plx, plx_err, coord,
+def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                 dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
                 apply_av_prior, tile, lngalprior=None, lndustprior=None):
     """One batch through the dense engine (`brutus_tpu.BruteForce.
@@ -88,8 +88,8 @@ def _dense_step(tables, generator, flux, err, mask, plx, plx_err, coord,
     grid, then `lnpost_grid`."""
     res = loglike_grid_fused(flux, err, mask, tables.coeffs, cfg=fit_cfg,
                              tile=tile, n_real=tables.n_real)
-    B, M = res["lnlike"].shape
-    noise = draw_noise(generator, B, selection_size(post_cfg, M), post_cfg,
+    M = res["lnlike"].shape[1]
+    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        tables.coeffs.device, grid=True)
     return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
                        parallax_err=plx_err, feh=tables.feh,
@@ -185,10 +185,12 @@ class BruteForce:
         when `screen_k` is below the grid size, else the dense engine.
         Custom `lngalprior` / `lndustprior` callables follow the JAX
         package's per-star contract on torch tensors (see
-        `ops.posterior.lnpost_grid`).  Draws come from a
-        `torch.Generator` seeded with `seed` on the fit's device; the
-        funnel's MC kernel makes its normals from per-star seeds unless
-        `PosteriorConfig.kernel_rng` is off.  `screen_select="approx"`
+        `ops.posterior.lnpost_grid`).  Each star draws from its own
+        Philox stream keyed by `seed` and its row in `data`
+        (`ops/rng.py`), so a row's results do not depend on
+        `batch_size`; the funnel's MC kernel makes those normals itself
+        unless `PosteriorConfig.kernel_rng` is off, when they are drawn
+        outside and fed to it.  `screen_select="approx"`
         selects exactly.  Results stream batch by batch into
         `save_file`; `return_results=True` also returns them as a dict
         of numpy arrays.
@@ -268,8 +270,6 @@ class BruteForce:
             writer = ResultsWriter(save_file, n_data, Ndraws,
                                    labels=data_labels,
                                    save_dar_draws=save_dar_draws)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(int(seed))
         prev_tf32 = (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -285,7 +285,8 @@ class BruteForce:
                     dp = (dust_profile[0], dust_profile[1][sl],
                           dust_profile[2][sl])
                 out = step(
-                    tables, generator, torch.as_tensor(data[sl], **f32),
+                    tables, seed, torch.arange(lo, sl.stop, device=dev),
+                    torch.as_tensor(data[sl], **f32),
                     torch.as_tensor(data_err[sl], **f32),
                     torch.as_tensor(data_mask[sl], device=dev),
                     torch.as_tensor(parallax[sl], **f32),

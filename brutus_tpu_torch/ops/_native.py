@@ -172,6 +172,22 @@ KERNELS = {
 }
 
 
+def attributes(symbol, *args):
+    """`[registers, local-memory bytes per thread, ...]` of the kernel
+    instance that the C entry `symbol` (`bk_fit_attrs`,
+    `bk_screen_attrs`) picks for the integer `args` (the filter count
+    first), read with `cudaFuncGetAttributes`."""
+    fn = getattr(library(), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [I] * len(args) + [P]
+    out = (ctypes.c_int * 4)()
+    err = fn(*args, out)
+    if err != 0:
+        msg = library().bk_error_string(err).decode()
+        raise RuntimeError(f"{symbol} failed: {msg}")
+    return list(out)
+
+
 def reset_launches():
     for k in KERNELS.values():
         k.launches = 0
@@ -193,5 +209,5 @@ def check(t, name, shape=None, dtype=torch.float32, device=None):
     return t
 
 
-__all__ = ["KERNELS", "Kernel", "build", "library", "reset_launches",
-           "check"]
+__all__ = ["KERNELS", "Kernel", "build", "library", "attributes",
+           "reset_launches", "check"]

@@ -6,8 +6,9 @@ one shared grid (mirrors `brutus_tpu/ops/pallas_loglike.py`'s
 K1 in dense mode replaces `pallas_loglike.py:66 _make_kernel` with
 `per_star=False` (pallas_call at :819, wrapper `loglike_grid_fused`
 :710).  The CUDA kernel is `csrc/fit.cu`'s `bk_fit_dense`: the same body
-as the funnel's stacked mode (`funnel.fit_pack`), with the shared grid
-read without a star stride and `_post` applied in its epilogue.  Its
+as the funnel's stacked mode (`funnel.fit_pack`), with each block
+fitting a group of 8 stars against one window of the shared grid
+staged in shared memory, and `_post` applied in its epilogue.  Its
 plain version, `fit_dense_plain`, is `funnel.fit_pack_plain` on the
 grid broadcast over the stars.  The wrapper `fit_dense` runs the plain
 version for CPU tensors and launches the kernel for CUDA tensors.

@@ -26,6 +26,7 @@ gather layout have no purpose on a GPU and are not built.
 """
 
 import math
+from functools import lru_cache
 
 import torch
 
@@ -34,6 +35,8 @@ from ._native import KERNELS, check
 from .optimize import prepare_star_data
 
 SCREEN_MAG_CENTER = 12.0
+# Block widths K2 reduces over: its warps reduce 32 models each.
+SCREEN_BLOCKS = (32, 64, 128, 256, 512, 1024)
 LN10 = math.log(10.0)
 FLUXFAC = -0.4 * LN10
 
@@ -128,6 +131,9 @@ def screen_score_from_sums(A01, A02, Bm0, A11, A12, A22, RS, b1r, b2,
 # K2: screen
 # ---------------------------------------------------------------------------
 
+# Cached: a new device tensor per call would be a synchronous copy
+# from host memory in front of every launch.
+@lru_cache(maxsize=16)
 def _screen_params(cfg, device):
     avm, av_sig = cfg.av_gauss
     avvi = 1.0 / av_sig ** 2
@@ -176,9 +182,10 @@ def screen_blocks(table, maskrow, star, srow, n_filt, block,
     check(maskrow, "maskrow", (Mp,), device=dev)
     check(star, "star", (B, 2, F), device=dev)
     check(srow, "srow", (B, 5), device=dev)
-    if C < 3 * F or Mp % block or not 1 <= block <= 1024:
+    if C < 3 * F or Mp % block or block not in SCREEN_BLOCKS or F > 64:
         raise ValueError(f"screen: table {tuple(table.shape)} / block "
-                         f"{block} do not fit F={F}")
+                         f"{block} do not fit F={F} (the kernel takes "
+                         f"blocks of {SCREEN_BLOCKS})")
     out = torch.empty((B, Mp // block), dtype=torch.float32, device=dev)
     KERNELS["screen"](table, maskrow, star, srow,
                       _screen_params(cfg, dev), out, B, F, Mp, block)
@@ -229,6 +236,7 @@ def gather_slabs(table, bidx, block):
 # K1: per-star shortlist fit, stacked pack output
 # ---------------------------------------------------------------------------
 
+@lru_cache(maxsize=16)
 def _fit_params(cfg, device):
     avm, av_sig = cfg.av_gauss
     rvm, rv_sig = cfg.rv_gauss

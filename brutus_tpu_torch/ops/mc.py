@@ -8,10 +8,11 @@ covariance, draws `n_mc` samples, and integrates the Galactic, dust and
 parallax priors over them with an online logsumexp.  The CUDA kernel is
 `csrc/mc.cu`; `mc_integrate_plain` below is the same function in
 PyTorch, which the CPU path and the tests use.  Like the TPU kernel it
-has two modes: fed normals (`z`, drawn from a `torch.Generator`), and
-random numbers made inside the kernel from per-star `seeds` (Philox,
-see `rng.py`), whose plain version is `rng.normals` followed by
-`mc_integrate_plain`.
+has two modes: fed normals (`z`), and random numbers made inside the
+kernel from per-star `seeds` (Philox, see `rng.py`), whose plain
+version is `rng.normals` followed by `mc_integrate_plain`.  The fit
+feeds `rng.normals` of the same star keys, so both modes draw the same
+normals.
 
 Cite: reference brutus/fitting.py:1068-1098 (MC prior integration),
 brutus/pdf.py:476-749 (gal prior), brutus/pdf.py:752-840 (dust prior),

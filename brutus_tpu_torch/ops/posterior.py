@@ -20,8 +20,9 @@ avoided slow gathers on the TPU and give identical values).  All
 randomness comes in through `Noise`: the MC normals (or, for K4's
 random-number mode, per-star seeds), the uniforms of the inverse-CDF
 model draws and the Gumbel noise of the per-draw pick.  `draw_noise`
-makes them on the device from a `torch.Generator`; tests hand in the
-JAX package's own draws instead.
+makes them on the device from one Philox stream per star, keyed by the
+fit's seed and the star's global row (`rng.py`); tests hand in the JAX
+package's own draws instead.
 """
 
 import collections
@@ -35,6 +36,7 @@ from ..priors import (gal_lnprior, dust_lnprior, parallax_lnprior,
                       scale_parallax_lnprior)
 from ..utils import (sym3_from_parts, psd_repair_parts, cholesky3_parts)
 from .mc import mc_integrate, nmc_pad_of, NL_PAD
+from . import rng
 
 NEG_BIG = -1e30
 # NEG_BIG is finite, so validity is a threshold, not `isfinite`.
@@ -54,26 +56,19 @@ def _is_valid(x):
     return torch.isfinite(x) & (x > VALID_MIN)
 
 
-def draw_noise(generator, B, K, cfg: PosteriorConfig, device, grid=False):
-    """The random inputs of one batch, drawn on `device`: for
-    `lnpost_grid` when `grid`, else for `lnpost_batch`, whose MC kernel
-    makes its own normals from per-star seeds when `cfg.kernel_rng`."""
+def draw_noise(seed, rows, K, cfg: PosteriorConfig, device, grid=False):
+    """The random inputs of the stars at global `rows` (B,) of a fit
+    seeded with `seed`, drawn on `device` from one Philox stream per
+    star (`rng.py`, counter layout there): for `lnpost_grid` when
+    `grid`, else for `lnpost_batch`, whose MC kernel makes its normals
+    from the star keys when `cfg.kernel_rng` and is fed the same
+    normals otherwise.  A star's draws depend on `(seed, row)` alone."""
+    keys = rng.star_keys(seed, torch.as_tensor(rows, device=device))
     nmc = cfg.n_mc_prior
-    z = seeds = None
-    if grid:
-        z = torch.randn((B, K, 3, nmc), generator=generator, device=device)
-    elif cfg.kernel_rng:
-        seeds = torch.randint(0, 2 ** 31 - 1, (B, 2), generator=generator,
-                              dtype=torch.int32, device=device)
-    else:
-        z = torch.zeros((B, 3, nmc_pad_of(nmc), K), dtype=torch.float32,
-                        device=device)
-        z[:, :, :nmc] = torch.randn((B, 3, nmc, K), generator=generator,
-                                    device=device)
-    u = torch.rand((B, cfg.n_draws), generator=generator, device=device)
-    e = torch.empty((B, cfg.n_draws, nmc), device=device).exponential_(
-        generator=generator)
-    return Noise(z, u, -torch.log(e), seeds)
+    kind = "grid" if grid else (None if cfg.kernel_rng else "mc")
+    z, u, gumbel = rng.posterior_draws(keys, K, nmc, cfg.n_draws, z=kind,
+                                       nmc_pad=nmc_pad_of(nmc))
+    return Noise(z, u, gumbel, None if kind else keys)
 
 
 def _categorical_cdf(u, logits, n):

@@ -8,15 +8,18 @@
 Phases, each printing one line with its elapsed seconds:
 
 1. the card's name and power limit (`nvidia-smi`);
-2. build of the CUDA kernels (one nvcc call, `build/kernels/`);
+2. build of the CUDA kernels (one nvcc call, `build/kernels/`), and the
+   registers and local memory per thread of the K1 and K2 instances of
+   the main paths (F=8) and of K1's run-time-F instance;
 3. each kernel, in each of its modes, against its plain PyTorch
    version on the card, at the widths of the main paths: K2 screen
-   (750k models, 8 stars), K3 slab gather and K1 fit (128 stars,
-   12288-model shortlists), K1 in dense mode (16 stars x 750,080
-   models), K4 MC integration with fed normals and with its own
-   random numbers (16 stars, 2048 models), with the deviation, the
-   tolerance and the times of kernel, plain version, library call
-   (where one exists) and bound;
+   (750k models, 8 stars and the funnel's 128), K3 slab
+   gather and K1 fit (128 stars, 12288-model shortlists), K1 in dense
+   mode (16 stars x 750,080 models), K4 MC integration with fed normals
+   and with its own random numbers (16 stars, 2048 models), with the
+   deviation, the tolerance and the times of kernel, plain version,
+   library call (where one exists) and bound (K1's counts the polish
+   only for the pairs its freeze lets move, `moving_pairs`);
 4. the main path: `BruteForce.fit` (funnel engine, K4 making its own
    normals, the default) on a 750,000-model, 8-band correlated grid,
    512 stars in 4 batches of 128, with parallax, Galactic and dust
@@ -29,7 +32,8 @@ Phases, each printing one line with its elapsed seconds:
    256 stars in batches of 16, timed as stars/s;
 7. a `kernels` JSON line: each kernel's launches during the path that
    runs it (phase 4, 5 or 6; each must be > 0) and its phase-3
-   deviation and times.
+   deviation and times; for K2 and K1 also the registers and local
+   bytes per thread, for K1 the share of pairs moving in the polish.
 
 Any failure exits non-zero.  The last line of a card run is the device
 record `{"ok": true, "device": {...}}`.
@@ -40,7 +44,8 @@ warm fits timed in turns (funnel / funnel with fed normals / funnel
 with fed normals / funnel at 512 stars, dense twice at 256, then the
 funnel at 4096), per path a `torch.profiler` trace of one warm fit
 (device time by kernel, busy time, idle share), and each hand-written
-kernel's launches x (ms - bound) on the path that runs it, the order
+kernel's launches x (ms - bound) on the path that runs it (K1's bound
+from the share of pairs moving on the path's first batch), the order
 in which kernel redesigns would win the most time back; the last line
 is one JSON object with these numbers.  The script imports nothing of
 JAX nor of the JAX package; its grid generator is its own copy of the
@@ -50,6 +55,7 @@ correlated lattice the repository's JAX benchmark uses.
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -156,31 +162,67 @@ def bound(nbytes, ops):
 
 # Each kernel's bound, `(ms, "bytes" | "operations")`, from its shapes:
 # every input read once and every output written once, and the float32
-# operations its inputs need.
+# operations the function needs for its inputs: per (star, model), plus
+# once per model what does not depend on the star.
 def screen_bound(B, Mp, F, block):
+    """K2: per (star, model) 12 FMAs per filter (24 operations) and ~70
+    of solve and score; per model the centered magnitude and its six
+    star-independent products per filter (7F)."""
     return bound(4 * (3 * F * Mp + Mp + B * Mp // block + B * (2 * F + 5)),
-                 B * Mp * (30 * F + 70))
+                 B * Mp * (24 * F + 70) + Mp * 7 * F)
 
 
 def gather_bound(C, B, P, nb):
     return bound(4 * (2 * C * B * P + B * nb), 0)
 
 
-def fit_ops_per_model(F, mag_iters=6, flux_iters=6):
-    """Float32 operations of K1 per (star, model): the seed, the
-    magnitude-space solves, the flux-space updates and expansions."""
-    iters = mag_iters + flux_iters
-    return F * (27 + 12 * mag_iters + 36 * (iters + 2)) + 400
+def fit_ops(F, mag_iters=6, flux_iters=6):
+    """Float32 operations K1 needs (an exp, a division or a compare counts
+    one), counted from the fit's steps, as `(per (star, model), per
+    moving (star, model), per model)`.  Every pair: the direct seed (23
+    per filter, 55 more), the magnitude-space solves (21 per filter and
+    37 more each), the first flux-space expansion and its sums (34 per
+    filter), each polish step's update (24), the final expansion with
+    the precision parts (41 per filter, 7 more) and the epilogue (10).
+    A pair the freeze lets move: each polish step's re-expansion and
+    sums (34 per filter, 7 more).  Per model: exp(-0.4 ln10 mag) per
+    filter."""
+    pair = (F * (23 + 21 * mag_iters + 11 + 34 + 41)
+            + 55 + 37 * mag_iters + 4 + 24 * flux_iters + 7 + 10)
+    return pair, flux_iters * (34 * F + 7), 2 * F
 
 
-def fit_bound(B, P, C, F, n_rows):
+def moving_pairs(chi2, tile, cfg):
+    """(star, model) pairs whose flux-space polish moves them: lnlike
+    after the first expansion at least the best of its `tile`-wide
+    window + ln(init_thresh) (`pallas_loglike.py:248-252`).  `chi2`
+    (B, P) is the plain version's, run with `no_polish(cfg)` and no
+    padding mask.  Frozen pairs' polish steps leave them where they
+    are, so that work is not counted in the bound."""
+    lnl = -0.5 * chi2
+    B, P = lnl.shape
+    w = lnl.reshape(B, P // tile, tile)
+    best = w.amax(-1, keepdim=True)
+    return int((~(w < best + math.log(cfg.init_thresh))).sum().item())
+
+
+def no_polish(cfg):
+    return dataclasses.replace(cfg, kernel_flux_iters=0)
+
+
+def fit_bound(B, P, C, F, n_rows, moving):
+    """K1 stacked: every star fits its own P models; `moving` pairs take
+    the polish's re-expansions."""
+    pair, move, model = fit_ops(F)
     return bound(4 * (C * B * P + B * P + n_rows * B * P),
-                 B * P * fit_ops_per_model(F))
+                 B * P * (pair + model) + moving * move)
 
 
-def fit_dense_bound(B, Mp, F):
+def fit_dense_bound(B, Mp, F, moving):
+    """K1 dense: every star fits the same Mp models."""
+    pair, move, model = fit_ops(F)
     return bound(4 * (3 * F * Mp + 11 * B * Mp + B * (4 * F + 3)),
-                 B * Mp * fit_ops_per_model(F))
+                 B * Mp * pair + moving * move + Mp * model)
 
 
 def mc_bound(B, K, n_rows, nmc, active, rng):
@@ -232,7 +274,9 @@ def fit_deviation(k, q, gidx, n_real, tile):
     field (a fault at one position hits nearly all of them).
     """
     real = gidx < n_real
-    d = (k[:, :11] - q[:, :11]).abs()
+    # Equal values deviate by 0, infinities too (inf - inf is NaN).
+    d = torch.where(k[:, :11] == q[:, :11], 0.0,
+                    (k[:, :11] - q[:, :11]).abs())
     qa = q[:, :11].abs()
     lnl = q[:, 0]
     near = real & (lnl > lnl.amax(1, keepdim=True) - 20.0)
@@ -250,14 +294,45 @@ def fit_deviation(k, q, gidx, n_real, tile):
         crowd=(off.sum((0, 1)) / n_pos).max().item())
 
 
-def report_fit(what, dev1, ms, pms, bms, by, t0):
+def screen_deviation(k, q, wt_mag, mags):
+    """How far K2's block maxima `k` are from its plain version `q`
+    (B, nblk), against the per-star limit max(1, 2e-6 S).
+
+    The score cancels weighted sums of squared magnitudes down to a chi2
+    of order 10; float32 rounding in another order moves it by a few
+    1e-7 of their size S = sum w (|m| + 4)^2 (bf16 products would move
+    it by ~1e-3 of S).  Returned: `err` the max |dev| over real blocks,
+    `rel` its max relative to max(1, |plain|), `tol` the largest
+    per-star limit, `ok` whether every star is within its limit and the
+    padding blocks are the same.
+    """
+    from brutus_tpu_torch.ops.funnel import SCREEN_MAG_CENTER
+    real = q > -1e29
+    d = (k - q).abs()
+    S = (wt_mag * ((mags - SCREEN_MAG_CENTER).abs() + 4.0) ** 2).sum(1)
+    tol = torch.clamp(2e-6 * S, min=1.0)
+    dev_b = (d * real).amax(1)
+    return dict(err=d[real].max().item(),
+                rel=(d / q.abs().clamp(min=1.0))[real].max().item(),
+                tol=tol.max().item(),
+                ok=bool((dev_b <= tol).all())
+                and bool(torch.equal(k > -1e29, real)))
+
+
+def fit_ok(dev1):
+    """Whether K1's deviation `fit_deviation` is within its limits: lnlike
+    within 0.02 nats near the best, and `K1_TOL`."""
+    return (dev1["near"] <= 0.02 and dev1["all"] <= K1_TOL["all"]
+            and max(dev1["cap"]) <= K1_TOL["cap"]
+            and dev1["frac"] <= K1_TOL["frac"]
+            and dev1["crowd"] <= K1_TOL["crowd"])
+
+
+def report_fit(what, dev1, ms, pms, bms, by, share, t0):
     """Print a K1 check against `K1_TOL` (lnlike within 0.02 nats near
     the best) and fail if it is off."""
     err, tol = dev1["near"], 0.02
-    ok = (err <= tol and dev1["all"] <= K1_TOL["all"]
-          and max(dev1["cap"]) <= K1_TOL["cap"]
-          and dev1["frac"] <= K1_TOL["frac"]
-          and dev1["crowd"] <= K1_TOL["crowd"])
+    ok = fit_ok(dev1)
     log(f"{what}: max |dev| of lnlike within 20 nats of the best {err:.4g} "
         f"(tol {tol}), over all models {dev1['all']:.4g} relative (tol "
         f"{K1_TOL['all']}); per field max |dev| / (|plain| + median "
@@ -265,7 +340,8 @@ def report_fit(what, dev1, ms, pms, bms, by, t0):
         f"{K1_TOL['cap']}); fields off by >1e-3 of that {dev1['frac']:.3e} "
         f"(tol {K1_TOL['frac']}), models with one at the most crowded "
         f"window position {dev1['crowd']:.3g} (tol {K1_TOL['crowd']}); "
-        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})"
+        f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by}; "
+        f"{share:.3f} of the pairs move in the polish)"
         f"  [{time.time() - t0:.1f} s]")
     if not ok:
         raise AssertionError(f"{what} disagrees with its plain version")
@@ -292,35 +368,33 @@ def phase_kernels(mc, labels, dev, results):
     star2, srow5 = TF._screen_star_mats(mg, wm, plx, plxw)
     block, nb = 256, 48
 
-    # K2 at 8 stars (the plain version's (B, M) planes stay small)
+    # K2 at 8 stars (one partial star group of the kernel) and at the
+    # funnel's batch of 128 (two full groups)
     t0 = time.time()
     a8 = (tabs.table, tabs.maskrow, star2[:8].contiguous(),
           srow5[:8].contiguous(), F, block, cfg)
-    k = TF.screen_blocks(*a8)
-    q = TF.screen_blocks_plain(*a8)
-    real = q > -1e29
-    err = (k - q).abs()[real].max().item()
-    # The score cancels weighted sums of squared magnitudes down to a
-    # chi2 of order 10; float32 rounding in another order moves it by a
-    # few 1e-7 of their size S = sum w (|m| + 4)^2 (bf16 products would
-    # move it by ~1e-3 of S).
-    S = (wm[:8] * ((mg[:8] - TF.SCREEN_MAG_CENTER).abs() + 4.0) ** 2).sum(1)
-    rel = ((k - q).abs() / q.abs().clamp(min=1.0))[real].max().item()
-    dev_b = ((k - q).abs() * real).amax(1)
-    tol = torch.clamp(2e-6 * S, min=1.0)
-    ok = bool((dev_b <= tol).all())
-    tol = tol.max().item()
-    ms = cuda_ms(lambda: TF.screen_blocks(*a8), 20)
-    pms = cuda_ms(lambda: TF.screen_blocks_plain(*a8), 5)
-    bms, by = screen_bound(8, Mp, F, block)
+    sd8 = screen_deviation(TF.screen_blocks(*a8), TF.screen_blocks_plain(*a8),
+                           wm[:8], mg[:8])
+    ms8 = cuda_ms(lambda: TF.screen_blocks(*a8), 20)
+    bms8, _ = screen_bound(8, Mp, F, block)
+    a128 = (tabs.table, tabs.maskrow, star2, srow5, F, block, cfg)
+    sd = screen_deviation(TF.screen_blocks(*a128),
+                          TF.screen_blocks_plain(*a128), wm, mg)
+    ms = cuda_ms(lambda: TF.screen_blocks(*a128), 20)
+    pms = cuda_ms(lambda: TF.screen_blocks_plain(*a128), 3)
+    bms, by = screen_bound(128, Mp, F, block)
+    err = max(sd8["err"], sd["err"])
     results["screen"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                             bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"phase 3 K2 screen (8 stars x {M} models): max |dev| {err:.4g} "
-        f"(tol per star max(1, 2e-6 S), at most {tol:.3g}), max relative "
-        f"dev {rel:.3g}, kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
+                             bound_ms=bms, bound_by=by, library_ms=None,
+                             ms_8_stars=ms8, bound_8_stars_ms=bms8)
+    log(f"phase 3 K2 screen ({M} models): max |dev| at 8 stars "
+        f"{sd8['err']:.4g}, at 128 stars {sd['err']:.4g} (tol per star "
+        f"max(1, 2e-6 S), at most {max(sd8['tol'], sd['tol']):.3g}), max "
+        f"relative dev {max(sd8['rel'], sd['rel']):.3g}; kernel at 8 stars "
+        f"{ms8:.3f} ms, bound {bms8:.4f} ms; at 128 stars: kernel {ms:.3f} "
+        f"ms, plain {pms:.3f} ms, bound {bms:.4f} ms ({by})  "
         f"[{time.time() - t0:.1f} s]")
-    if not ok:
+    if not (sd8["ok"] and sd["ok"]):
         raise AssertionError("K2 screen disagrees with its plain version")
 
     # K3 and K1 at 128 stars x 12288 shortlist models
@@ -357,11 +431,14 @@ def phase_kernels(mc, labels, dev, results):
     del q
     ms = cuda_ms(lambda: TF.fit_pack(*args), 10)
     pms = cuda_ms(lambda: TF.fit_pack_plain(*args), 3)
-    bms, by = fit_bound(128, P, C, F, 15)
+    moving = moving_pairs(TF.fit_pack_plain(
+        *args[:6], -1, 512, no_polish(cfg))[:, 1], 512, cfg)
+    bms, by = fit_bound(128, P, C, F, 15, moving)
     results["fit"] = dict(max_abs_err=dev1["near"], ms=ms, plain_ms=pms,
-                          bound_ms=bms, bound_by=by, library_ms=None)
+                          bound_ms=bms, bound_by=by, library_ms=None,
+                          moving_share=moving / (128 * P))
     report_fit(f"phase 3 K1 fit (128 stars x {P})", dev1, ms, pms, bms, by,
-               t0)
+               moving / (128 * P), t0)
 
     # K1 in dense mode at 16 stars x every model of the grid
     t0 = time.time()
@@ -378,12 +455,15 @@ def phase_kernels(mc, labels, dev, results):
     del k, q
     ms = cuda_ms(lambda: TFD.fit_dense(*dargs), 10)
     pms = cuda_ms(lambda: TFD.fit_dense_plain(*dargs), 2)
-    bms, by = fit_dense_bound(16, Mpd, F)
+    moving = moving_pairs(TFD.fit_dense_plain(
+        *dargs[:3], -1, 512, no_polish(cfg))[1], 512, cfg)
+    bms, by = fit_dense_bound(16, Mpd, F, moving)
     results["fit_dense"] = dict(max_abs_err=dev1["near"], ms=ms,
                                 plain_ms=pms, bound_ms=bms, bound_by=by,
-                                library_ms=None)
+                                library_ms=None,
+                                moving_share=moving / (16 * Mpd))
     report_fit(f"phase 3 K1 dense (16 stars x {Mpd} models)", dev1, ms, pms,
-               bms, by, t0)
+               bms, by, moving / (16 * Mpd), t0)
 
     # K4 at 16 stars x 2048 selected models, from the select stage, in
     # both modes
@@ -400,13 +480,14 @@ def phase_kernels(mc, labels, dev, results):
                            GalPriorConfig(), DustPriorConfig(), True)
     scal, dust = TP._star_scalars(coord, t(s["plx"][b16]),
                                   t(s["plxe"][b16]), prof, True)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
     K = sel["table"].shape[2]
     nmc, nmcp = pcfg.n_mc_prior, TMC.nmc_pad_of(pcfg.n_mc_prior)
-    z = TP.draw_noise(gen, 16, K, dataclasses.replace(
+    # The fit's draws of rows 0-15 with seed 1: the fed normals are the
+    # ones the random-number mode makes from the same star keys.
+    rows = torch.arange(16, device=dev)
+    z = TP.draw_noise(1, rows, K, dataclasses.replace(
         pcfg, kernel_rng=False), dev).z
-    seeds = TP.draw_noise(gen, 16, K, pcfg, dev).seeds
+    seeds = TP.draw_noise(1, rows, K, pcfg, dev).seeds
     valid = sel["valid"].to(torch.float32)
     rm = TP._pack_row_map(names)
     cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
@@ -523,23 +604,63 @@ PATHS = {
     "funnel_fed": dict(batch=128, screen_k=12288, kernel_rng=False, n=512),
     "dense": dict(batch=16, screen_k=0, kernel_rng=True, n=256),
 }
+# K1's bounds take the share of pairs its freeze lets move on the path
+# (`path_moving_shares`).
 PATH_KERNELS = {
-    ("funnel", "screen_kernel"): ("screen", lambda: screen_bound(
+    ("funnel", "screen_kernel"): ("screen", lambda sh: screen_bound(
         128, 750_080, 8, 256)),
-    ("funnel", "gather_kernel"): ("gather", lambda: gather_bound(
+    ("funnel", "gather_kernel"): ("gather", lambda sh: gather_bound(
         27, 128, 12288, 48)),
-    ("funnel", "fit_kernel"): ("fit", lambda: fit_bound(
-        128, 12288, 27, 8, 15)),
-    ("funnel", "mc_kernel"): ("mc_rng", lambda: mc_bound(
+    ("funnel", "fit_kernel"): ("fit", lambda sh: fit_bound(
+        128, 12288, 27, 8, 15, sh["fit"] * 128 * 12288)),
+    ("funnel", "mc_kernel"): ("mc_rng", lambda sh: mc_bound(
         128, 2048, 15, 50, 128 * 2048, rng=True)),
-    ("funnel_fed", "mc_kernel"): ("mc_fed", lambda: mc_bound(
+    ("funnel_fed", "mc_kernel"): ("mc_fed", lambda sh: mc_bound(
         128, 2048, 15, 50, 128 * 2048, rng=False)),
-    ("dense", "fit_kernel"): ("fit_dense", lambda: fit_dense_bound(
-        16, 750_080, 8)),
+    ("dense", "fit_kernel"): ("fit_dense", lambda sh: fit_dense_bound(
+        16, 750_080, 8, sh["fit_dense"] * 16 * 750_080)),
 }
 
 
-def profile_path(bf, s, dev, path, quiet=False):
+def path_moving_shares(mc, labels, dev):
+    """The share of (star, model) pairs K1's freeze lets move on each of
+    its paths, from the first batch of the profile's fits: the funnel's
+    shortlists of the first 128 of `stars(mc, 512)` and the dense
+    engine's first 16 of `stars(mc, 256)`, through the plain versions.
+    The profile's K1 bounds take them for every batch of the path."""
+    from brutus_tpu_torch.config import FitConfig
+    from brutus_tpu_torch.convert import from_numpy_grid
+    from brutus_tpu_torch.ops import fit as TFD, funnel as TF
+    cfg = FitConfig()
+    F = mc.shape[1]
+    shares = {}
+    for name, n, b in (("fit", 512, 128), ("fit_dense", 256, 16)):
+        s = stars(mc, n)
+        t = lambda x: torch.as_tensor(x[:b], dtype=torch.float32,
+                                      device=dev)
+        mask = torch.ones((b, F), dtype=torch.bool, device=dev)
+        fp, wf, mg, wm, mk, nd, tv = TF.prepare_star_data(
+            t(s["flux"]), t(s["err"]), mask, cfg)
+        star4 = torch.stack([fp, wf, mg, wm], 1).contiguous()
+        srow3 = TF.post_consts(mk, nd, tv)
+        if name == "fit":
+            tabs = from_numpy_grid(mc, labels, device=dev)
+            plx, plxw = TF._screen_parallax(t(s["plx"]), t(s["plxe"]))
+            star2, srow5 = TF._screen_star_mats(mg, wm, plx, plxw)
+            bidx, idx = TF._select_blocks(TF.screen_blocks(
+                tabs.table, tabs.maskrow, star2, srow5, F, 256, cfg), 48, 256)
+            chi2 = TF.fit_pack_plain(
+                star4, TF.gather_slabs(tabs.table, bidx, 256),
+                idx.contiguous(), srow3, 3, 15, -1, 512, no_polish(cfg))[:, 1]
+        else:
+            coeffs, _ = TFD.prepare_coeffs(mc, tile=512, device=dev)
+            chi2 = TFD.fit_dense_plain(star4, coeffs, srow3, -1, 512,
+                                       no_polish(cfg))[1]
+        shares[name] = moving_pairs(chi2, 512, cfg) / chi2.numel()
+    return shares
+
+
+def profile_path(bf, s, dev, path, shares, quiet=False):
     """Device busy time, idle share, the top device events and the
     hand-written kernels' launches, ms and lost time of one warm fit of
     `path` under `torch.profiler`."""
@@ -569,7 +690,7 @@ def profile_path(bf, s, dev, path, quiet=False):
         if hits:
             n = sum(e.count for e in hits)
             ms = sum(dev_us(e) for e in hits) / 1e3 / n
-            bms, by = kbound()
+            bms, by = kbound(shares)
             kernels[name] = dict(launches=n, ms=ms, bound_ms=bms,
                                  bound_by=by, lost_ms=n * (ms - bms))
     log(f"profiled {path} fit of {len(s['idx'])} stars: wall {wall:.3f} s, "
@@ -621,8 +742,10 @@ def profile_main(dev):
 
     # The profiler's first window carries its own start-up (seconds of
     # wall): profile once untimed.
-    profile_path(bf, s[512], dev, "funnel", quiet=True)
-    prof = {path: profile_path(bf, s[p["n"]], dev, path)
+    shares = path_moving_shares(mc, labels, dev)
+    log(f"K1 pairs moving in the polish, by path: {shares}")
+    profile_path(bf, s[512], dev, "funnel", shares, quiet=True)
+    prof = {path: profile_path(bf, s[p["n"]], dev, path, shares)
             for path, p in PATHS.items()}
     if any(v is None for v in prof.values()):
         log("profiler recorded no device time: breakdown not measured")
@@ -637,8 +760,23 @@ def profile_main(dev):
             f"{v['lost_ms']:.3f} ms")
     log(json.dumps(dict(card=card, setup=setup, stars_per_s=rates,
                         funnel_big_stars=n_big, funnel_big_stars_per_s=big,
-                        profiles=prof)))
+                        k1_moving_shares=shares, profiles=prof)))
     return 0
+
+
+# The K1 and K2 instances of the main paths (F=8, windows of 512, the
+# dense kernel's star group): registers and local memory per thread.
+INSTANCES = ("screen", "fit", "fit_dense")
+
+
+def kernel_attrs(name, F):
+    from brutus_tpu_torch.ops import _native
+    if name == "screen":
+        r = _native.attributes("bk_screen_attrs", F)
+    else:
+        r = _native.attributes("bk_fit_attrs", F, 512,
+                               int(name == "fit_dense"))
+    return dict(registers=r[0], local_bytes=r[1])
 
 
 # The phase whose run each kernel's launches are read from.
@@ -672,6 +810,7 @@ def main():
             return profile_main(dev)
     from brutus_tpu_torch.ops import _native
     card = None
+    attrs = {}
     if dev.type == "cuda":
         t0 = time.time()
         card = nvidia_smi()
@@ -681,11 +820,15 @@ def main():
         t0 = time.time()
         path, blog = _native.build()
         _native.library()
-        regs = [ln.strip() for ln in blog.splitlines() if "registers" in ln]
         log(f"phase 2 build: {path} ({len(_native.sources())} sources, "
-            f"one nvcc call)  [{time.time() - t0:.1f} s]")
-        for ln in regs:
-            log(f"  ptxas: {ln}")
+            f"one nvcc call; ptxas reports {blog.count('Used ')} kernel "
+            f"instances)  [{time.time() - t0:.1f} s]")
+        for name, F in [(n, 8) for n in INSTANCES] + [("fit", 49)]:
+            a = kernel_attrs(name, F)
+            if F == 8:
+                attrs[name] = a
+            log(f"  {name} at F={F}: {a['registers']} registers, "
+                f"{a['local_bytes']} bytes of local memory per thread")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
@@ -737,6 +880,7 @@ def main():
                      replaces=k.replaces,
                      launches=runs[KERNEL_PHASE[name]]["launches"][name])
         entry.update(results.get(name, {}))
+        entry.update(attrs.get(name, {}))
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     if dev.type == "cpu":

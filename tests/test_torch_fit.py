@@ -5,6 +5,7 @@ and the float64 oracle, on the correlated grid of
 options the port does not have yet; and the card-free import.  The
 dense engine on the same problem: `test_torch_dense.py`."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -158,6 +159,47 @@ def test_fit_hdf5_matches_the_jax_package(problem, tmp_path):
     np.testing.assert_array_equal(rt["samps_dist"], out["dist"])
     np.testing.assert_array_equal(rt["model_idx"], out["model_idx"])
     assert (rt["model_idx"] >= 0).all()
+
+
+ENGINES = {"dense": 0, "funnel": 2048}
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_fit_rows_do_not_depend_on_batch_size(problem, engine):
+    """Each star draws from its own stream keyed by `(seed, row)`, as the
+    JAX package keys it by `fold_in(PRNGKey(seed), row)`: the same stars
+    fitted in batches of 8 and of 3 (the rows then sit at other batch
+    positions, and the last batch is short) give the same model draws,
+    and distances within rtol = 1e-5 (`test_fitting.py`'s
+    `test_fit_scan_batches_identical_rows` holds the JAX package to
+    the same)."""
+    p = problem
+    bf = BruteForce(p["mc"], p["labels"], device="cpu")
+    kw = dict(p["kw"], screen_k=ENGINES[engine], seed=3,
+              return_results=True)
+    outs = [bf.fit(p["flux"], p["errs"], p["mask"],
+                   **dict(kw, batch_size=n)) for n in (8, 3)]
+    np.testing.assert_array_equal(outs[0]["model_idx"],
+                                  outs[1]["model_idx"])
+    np.testing.assert_allclose(outs[0]["dist"], outs[1]["dist"], rtol=1e-5)
+
+
+def test_funnel_draws_alike_with_and_without_kernel_rng(problem,
+                                                        monkeypatch):
+    """K4 makes its normals from the star keys (`kernel_rng`, the
+    default) or is fed `rng.normals` of the same keys: on the CPU both
+    run the same plain arithmetic, so the fits are equal bit for bit."""
+    from brutus_tpu_torch import config, fitting
+    p = problem
+    bf = BruteForce(p["mc"], p["labels"], device="cpu")
+    outs = []
+    for kernel_rng in (True, False):
+        monkeypatch.setattr(fitting, "PosteriorConfig", functools.partial(
+            config.PosteriorConfig, kernel_rng=kernel_rng))
+        outs.append(bf.fit(p["flux"], p["errs"], p["mask"], seed=5,
+                           return_results=True, **p["kw"]))
+    for k in outs[0]:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k], err_msg=k)
 
 
 NOT_PORTED = {

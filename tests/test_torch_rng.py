@@ -9,6 +9,8 @@ The CUDA kernel in this mode against its plain version:
 `tests/test_torch_kernels_gpu.py`.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax
@@ -60,6 +62,37 @@ def test_normal_moments():
     c = torch.corrcoef(x)
     for i, j in ((0, 1), (0, 2), (1, 2)):
         assert abs(c[i, j].item()) < 5e-3, (i, j, c[i, j].item())
+
+
+def test_star_draws_follow_the_row_not_the_batch_position():
+    """A star's draws depend on the fit's seed and its global row alone:
+    the star of row 41 at position 0 of one batch and at position 5 of
+    another draws the same key, `u`, Gumbel noise, fed and grid normals;
+    a selection twice as wide extends its normals without changing the
+    first half; other rows and other seeds draw otherwise."""
+    cfg = TC.PosteriorConfig(n_mc_prior=12, n_draws=30)
+    fed = dataclasses.replace(cfg, kernel_rng=False)
+    rows_a = torch.tensor([41, 0, 1, 2, 3, 4])
+    rows_b = torch.tensor([7, 8, 9, 10, 11, 41, 12])
+    draw = lambda rows, c, K=64, **kw: TP.draw_noise(9, rows, K, c, "cpu",
+                                                     **kw)
+    a, b = draw(rows_a, cfg), draw(rows_b, cfg)
+    assert torch.equal(a.seeds[0], b.seeds[5])
+    assert torch.equal(a.u[0], b.u[5])
+    assert torch.equal(a.gumbel[0], b.gumbel[5])
+    fa, fb = draw(rows_a, fed), draw(rows_b, fed, K=128)
+    assert torch.equal(fa.z[0], fb.z[5][..., :64])
+    assert torch.equal(fa.z[0], rng.normals(a.seeds[:1], 64, 12, 16)[0])
+    ga, gb = draw(rows_a, cfg, grid=True), draw(rows_b, cfg, grid=True)
+    assert torch.equal(ga.z[0], gb.z[5])
+    assert ga.z.shape == (6, 64, 3, 12) and a.gumbel.shape == (6, 30, 12)
+    assert not torch.equal(a.u[0], a.u[1])
+    assert not torch.equal(a.u[0], TP.draw_noise(10, rows_a, 64, cfg,
+                                                 "cpu").u[0])
+    # the streams of one star do not repeat each other
+    assert not torch.equal(ga.z[0, :, 0, :], fa.z[0, 0, :12].T)
+    assert 0.0 <= a.u.min() and a.u.max() < 1.0
+    assert torch.isfinite(a.gumbel).all()
 
 
 def test_rng_plain_path_is_fed_plain():
@@ -120,10 +153,9 @@ def test_lnpost_batch_rng_in_distribution():
     pack = torch.as_tensor(np.array(res["pack_rows"])[:, :len(names)])
     pcfg = TC.PosteriorConfig()
     assert pcfg.kernel_rng
-    gen = torch.Generator()
-    gen.manual_seed(2)
-    noise = TP.draw_noise(gen, B, TP.selection_size(pcfg, pack.shape[2]),
-                          pcfg, "cpu")
+    noise = TP.draw_noise(2, torch.arange(B),
+                          TP.selection_size(pcfg, pack.shape[2]), pcfg,
+                          "cpu")
     assert noise.z is None and noise.seeds.shape == (B, 2)
     out = TP.lnpost_batch(
         pack, names, torch.as_tensor(np.array(res["ndim"])),
