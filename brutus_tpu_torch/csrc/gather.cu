@@ -45,3 +45,13 @@ extern "C" int bk_gather(const float* table, const int* bidx, float* out,
       table, bidx, out, Mp, B, nb, block);
   return (int)cudaGetLastError();
 }
+
+// Registers and local bytes per thread of the gather kernel.
+extern "C" int bk_gather_attrs(int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t e = cudaFuncGetAttributes(&at, (const void*)gather_kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  return 0;
+}

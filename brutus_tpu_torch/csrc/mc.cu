@@ -16,29 +16,50 @@
 // ladder of at most 128 rungs, the parallax prior and the bounds mask;
 // an online logsumexp and in-bounds count over the draws, in chunks of
 // 8 draws as the TPU kernel sums them.  Model tiles with no valid model
-// are skipped and write fixed constants (pallas_mc.py:148-158).
+// are skipped and write fixed constants (pallas_mc.py:148-158); the
+// caller picks the tile (the fit's 512 on the funnel path).
 //
-// Bound on this card: arithmetic (per draw ~20 transcendental functions
-// and ~150 other operations; in the random-number mode another 7
-// transcendental functions and ~80 integer operations of Philox).  The
-// dust hat interpolation of the TPU kernel sums all 128 rungs to avoid
-// gathers; a GPU thread reads the two rungs whose hat weights can be
-// non-zero, which is the same sum.
+// Bound on this card: at the funnel's shape (128 stars x 2048 models,
+// 56 draw rows) the bytes of the four (B, 56, K) outputs, which every
+// column writes, skipped or not; with the in-kernel normals the
+// arithmetic (Philox, ~30 special functions per draw split between the
+// special-function units and the FMA pipes) comes first, at ~0.084 ms
+// (chip_smoke.py `mc_bound`).  The TPU kernel sums the dust hat interpolation
+// over all 128 rungs to avoid gathers; here a thread reads the two rungs
+// whose hat weights can be non-zero from the star's ladder in shared
+// memory, which is the same sum.
 //
-// Design: one thread per (star, selected model); the draws are a loop
-// inside the thread; per-star scalars and the dust ladder are read
-// through the cache.  In the random-number mode the (B, 3, nmc_pad, K)
-// normals never exist in device memory: each thread makes its own.
+// Design: one thread per (star, selected model), the draws a loop inside
+// the thread (not unrolled: the code stays small), one star per block,
+// at most 64 registers.  What sets a sample or a mask (the
+// PSD repair, the Cholesky factor, s, Av, Rv, parallax, distance, the
+// dust rung and the bounds test) keeps IEEE arithmetic without
+// contraction, as the plain version rounds it.  The log-densities, whose
+// limits are 1e-3, use the special-function unit: __expf, __logf,
+// __fdividef, approximate square roots, products with reciprocals of the
+// constants (the wrapper computes them) and explicit fmaf.  The
+// constants ride the kernel's parameters (the constant bank); the mode
+// and the prior flags are
+// template parameters; padding draw rows (n_mc and beyond) write their
+// fixed values without evaluating a prior; the outputs, written once
+// and read by a later kernel, go out as streaming stores.  In the
+// random-number mode the (B, 3, nmc_pad, K) normals never exist in
+// device memory: each thread makes its own, with the accurate libm
+// functions of `philox_normals3`, so they are the bits `rng.normals`
+// makes.
+#include <string.h>
+
 #include "common.cuh"
 
 namespace {
 
-// prm layout (ops/mc.py `_mc_params` writes the same order).
+// prm layout (ops/mc.py `_mc_params` writes the same order); the
+// divisors of the log-densities come as reciprocals (kInv*).
 enum {
   kAvmin, kAvmax, kRvmin, kRvmax, kWidth, kInvW2, kWidth2, kMvnEps,
-  kT0, kT1, kT2, kRsolar, kZsol, kRthin, kZthin, kRsThin2, kRthick,
-  kZthick, kRsThick2, kRq, kRq2, kQinf, kQdiff, kRsHalo2, kEta,
-  kReffSol, kLnFThick, kLnFHalo,
+  kT0, kT1, kT2, kRsolar, kZsol, kInvRthin, kInvZthin, kRsThin2,
+  kInvRthick, kInvZthick, kRsThick2, kInvRq, kRq2, kQinf, kQdiff,
+  kRsHalo2, kEta, kInvReffSol, kLnFThick, kLnFHalo,
   kFehMu, kFehSig2 = kFehMu + 3, kFehLn = kFehSig2 + 3,
   kAgeMu = kFehLn + 3, kAgeSig = kAgeMu + 3, kAgeLo = kAgeSig + 3,
   kAgeHi = kAgeLo + 3, kAgeLden = kAgeHi + 3,
@@ -46,14 +67,38 @@ enum {
   kDustScatter2, kNPrm
 };
 // iprm layout: row_map[11], use_feh, use_loga, use_dust, use_gal, passes.
-enum { kUseFeh = 11, kUseLoga, kUseDust, kUseGal, kPasses };
+enum { kUseFeh = 11, kUseLoga, kUseDust, kUseGal, kPasses, kNIprm };
 // scal layout per star.
 enum { kV0, kV1, kV2, kPm, kPw, kPln, kD0, kIdx, kCov, kUmax, kNScal };
 
 constexpr int kNl = 128;                 // dust ladder rungs (NL_PAD)
+constexpr int kThreads = 128;            // models per block (one star)
 constexpr float kLogSqrt2Pi = 0.91893853320467274f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kLn10 = 2.302585092994046f;
+
+// Everything that does not change within a launch, passed by value: the
+// kernel reads it from the constant bank, indexed by the enums above.
+struct McConst {
+  float prm[kNPrm];
+  int iprm[kNIprm];
+  int n_rows, K, nmc, nmc_pad, tile;
+};
+
+struct McIO {
+  const float* tab;
+  const float* valid;
+  const float* scal;
+  const float* dust;
+  const float* z;
+  const int* seeds;
+  const int* flags;
+  float* lnmc;
+  float* dist;
+  float* red;
+  float* dred;
+  float* agg;
+};
 
 struct Parts { float p[6]; };            // p00, p11, p22, p01, p02, p12
 
@@ -110,53 +155,127 @@ __device__ __forceinline__ bool is_psd(const Parts& in) {
   return (m1 > 0.f) && (m2 > 0.f) && (m3 > 0.f);
 }
 
-__global__ void mc_kernel(const float* __restrict__ tab,
-                          const float* __restrict__ valid,
-                          const float* __restrict__ scal,
-                          const float* __restrict__ dust,
-                          const float* __restrict__ z,
-                          const int* __restrict__ seeds,
-                          const int* __restrict__ flags,
-                          const float* __restrict__ prm,
-                          const int* __restrict__ iprm,
-                          float* __restrict__ lnmc,
-                          float* __restrict__ dist_o,
-                          float* __restrict__ red_o,
-                          float* __restrict__ dred_o,
-                          float* __restrict__ agg, int B, int K,
-                          int n_rows, int nmc, int nmc_pad, int tile) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+// sqrt.approx: one special-function instruction (sqrt(0) = 0).
+__device__ __forceinline__ float fast_sqrt(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// log(exp(t0) + exp(t1) + exp(t2)), the largest term factored out.
+__device__ __forceinline__ float lse3(float t0, float t1, float t2) {
+  const float m = nmax(nmax(t0, t1), t2);
+  return m + __logf(__expf(t0 - m) + __expf(t1 - m) + __expf(t2 - m));
+}
+
+// The log-prior of one draw at distance `dist` with reddening `a`: the
+// Galactic density with its feh and age mixtures and the dust prior
+// (the parallax prior and the bounds test are the caller's).
+template <bool GAL, bool FEH, bool LOGA, bool DUST>
+__device__ __forceinline__ float log_prior(
+    const McConst& c, float dist, float a, float v0, float v1, float v2,
+    const float feh_g[3], const float age_g[3], float d0, float idx_s,
+    float umax, float covered, const float2* lad) {
+  const float* p = c.prm;
+  float lnp = 0.f;
+  if (GAL) {
+    const float X = fmaf(dist, v0, p[kT0]);
+    const float Y = fmaf(dist, v1, p[kT1]);
+    const float Zg = fmaf(dist, v2, p[kT2]);
+    const float R2 = fmaf(X, X, Y * Y);
+    const float vol = 2.0f * __logf(dist);
+    const float az = fabsf(Zg) - p[kZsol];
+    const float reff_t = fast_sqrt(R2 + p[kRsThin2]);
+    const float lt = vol - fmaf(reff_t - p[kRsolar], p[kInvRthin],
+                                az * p[kInvZthin]);
+    const float reff_k = fast_sqrt(R2 + p[kRsThick2]);
+    const float lk = vol - fmaf(reff_k - p[kRsolar], p[kInvRthick],
+                                az * p[kInvZthick]) + p[kLnFThick];
+    const float rp = fast_sqrt(fmaf(Zg, Zg, R2) + p[kRq2]);
+    const float q = fmaf(-p[kQdiff], __expf(fmaf(-rp, p[kInvRq], 1.0f)),
+                         p[kQinf]);
+    const float zq = __fdividef(Zg, q);
+    const float reff_h = fast_sqrt(fmaf(zq, zq, R2 + p[kRsHalo2]));
+    const float lh = fmaf(p[kEta], __logf(reff_h * p[kInvReffSol]), vol)
+                     + p[kLnFHalo];
+    const float lnden = lse3(lt, lk, lh);
+    lnp = lnden;
+    if (FEH)
+      lnp += lse3(feh_g[0] + (lt - lnden), feh_g[1] + (lk - lnden),
+                  feh_g[2] + (lh - lnden));
+    if (LOGA)
+      lnp += lse3(age_g[0] + (lt - lnden), age_g[1] + (lk - lnden),
+                  age_g[2] + (lh - lnden));
+  }
+  if (DUST) {
+    const float u = nclip((dist - d0) * idx_s, 0.0f, umax);
+    const int lo = min((int)floorf(u), kNl - 1);
+    const float w_lo = fmaxf(0.0f, 1.0f - fabsf(u - (float)lo));
+    const float2 l0 = lad[lo];
+    float mean_i = w_lo * l0.x;
+    float std_i = w_lo * l0.y;
+    if (lo + 1 < kNl) {
+      const float w_hi = fmaxf(0.0f, 1.0f - fabsf(u - (float)(lo + 1)));
+      const float2 l1 = lad[lo + 1];
+      mean_i = fmaf(w_hi, l1.x, mean_i);
+      std_i = fmaf(w_hi, l1.y, std_i);
+    }
+    const float da = a - fmaf(p[kDustScale], mean_i, p[kDustOffset]);
+    const float sd = p[kDustSmoothScale] * std_i;
+    const float err2 = fmaf(sd, sd, p[kDustScatter2]);
+    const float dpdf = -0.5f * (__fdividef(da * da, err2)
+                                + __logf(kTwoPi * err2));
+    lnp += covered > 0.5f ? dpdf : 0.0f;
+  }
+  return lnp;
+}
+
+// At most 64 registers: eight blocks, 32 warps, on each SM.
+template <bool RNG, bool GAL, bool FEH, bool LOGA, bool DUST>
+__global__ void __launch_bounds__(kThreads, 8)
+    mc_kernel(const McIO io, const __grid_constant__ McConst c) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
+  const int K = c.K, nmc = c.nmc, nmc_pad = c.nmc_pad;
+  const float* p = c.prm;
+
+  // the star's dust ladder as (mean, std) pairs
+  __shared__ float2 lad[DUST ? kNl : 1];
+  if (DUST) {
+    const float* dm = io.dust + (size_t)b * 2 * kNl;
+    for (int i = threadIdx.x; i < kNl; i += kThreads)
+      lad[i] = make_float2(dm[i], dm[kNl + i]);
+    __syncthreads();
+  }
   if (k >= K) return;
   const size_t dk = (size_t)b * nmc_pad * K + k;   // draw field base
   const size_t ak = (size_t)b * 8 * K + k;         // agg base
-  const int n_tiles = K / tile;
 
-  if (flags[(size_t)b * n_tiles + k / tile] == 0) {   // tile skip
+  if (io.flags[(size_t)b * (K / c.tile) + k / c.tile] == 0) {  // skip
     for (int r = 0; r < nmc_pad; ++r) {
-      lnmc[dk + (size_t)r * K] = BK_NEG_BIG;
-      dist_o[dk + (size_t)r * K] = 1.0f;
-      red_o[dk + (size_t)r * K] = 0.0f;
-      dred_o[dk + (size_t)r * K] = 0.0f;
+      const size_t o = dk + (size_t)r * K;
+      __stcs(io.lnmc + o, BK_NEG_BIG);
+      __stcs(io.dist + o, 1.0f);
+      __stcs(io.red + o, 0.0f);
+      __stcs(io.dred + o, 0.0f);
     }
-    agg[ak] = BK_NEG_BIG;
-    for (int r = 1; r < 8; ++r) agg[ak + (size_t)r * K] = 0.0f;
+    __stcs(io.agg + ak, BK_NEG_BIG);
+    for (int r = 1; r < 8; ++r) __stcs(io.agg + ak + (size_t)r * K, 0.0f);
     return;
   }
 
-  const float* tk = tab + (size_t)b * n_rows * K + k;
-  auto row = [&](int i) { return __ldg(tk + (size_t)iprm[i] * K); };
+  const float* tk = io.tab + (size_t)b * c.n_rows * K + k;
+  auto row = [&](int i) { return __ldg(tk + (size_t)c.iprm[i] * K); };
   const float mean_s = row(0), mean_a = row(1), mean_r = row(2);
   Parts icov;
+#pragma unroll
   for (int j = 0; j < 6; ++j) icov.p[j] = row(3 + j);
-  const bool validm = valid[(size_t)b * K + k] > 0.5f;
+  const bool validm = io.valid[(size_t)b * K + k] > 0.5f;
 
   // ---- PSD repair (utils.psd_repair_parts) + Cholesky ----
-  const float width = prm[kWidth];
-  const float sfrac = mean_s * width;
+  const float sfrac = mean_s * p[kWidth];
   Parts cov = inverse_parts(icov);
-  const int passes = iprm[kPasses];
-  for (int i = 0; i < passes; ++i) {
+  for (int i = 0; i < c.iprm[kPasses]; ++i) {
     const float count = (float)(1 << i);
     const bool not_psd = !is_psd(cov) && validm;
     const bool d1 = cov.p[0] <= 0.f, d2 = cov.p[1] <= 0.f,
@@ -164,7 +283,7 @@ __global__ void mc_kernel(const float* __restrict__ tab,
     const float s1 = (d1 ? 1.f : 0.f) + ((!d2 && !d3) ? 1.f : 0.f);
     const float s2 = (d2 ? 1.f : 0.f) + ((!d1 && !d3) ? 1.f : 0.f);
     const float s3 = (d3 ? 1.f : 0.f) + ((!d1 && !d2) ? 1.f : 0.f);
-    const float cw = count * prm[kInvW2];
+    const float cw = count * p[kInvW2];
     if (not_psd) {
       icov.p[0] = icov.p[0] + count / (sfrac * sfrac) * s1;
       icov.p[1] = icov.p[1] + cw * s2;
@@ -174,17 +293,15 @@ __global__ void mc_kernel(const float* __restrict__ tab,
   }
   if (!is_psd(cov)) {
     const float w0 = nmax(sfrac * sfrac, 1e-30f);
-    const float w2 = prm[kWidth2];
     const float d0 = cov.p[0], d1 = cov.p[1], d2 = cov.p[2];
     cov.p[0] = (d0 > 0.f && isfinite(d0)) ? d0 : w0;
-    cov.p[1] = (d1 > 0.f && isfinite(d1)) ? d1 : w2;
-    cov.p[2] = (d2 > 0.f && isfinite(d2)) ? d2 : w2;
+    cov.p[1] = (d1 > 0.f && isfinite(d1)) ? d1 : p[kWidth2];
+    cov.p[2] = (d2 > 0.f && isfinite(d2)) ? d2 : p[kWidth2];
     cov.p[3] = cov.p[4] = cov.p[5] = 0.f;
   }
-  const float eps = prm[kMvnEps];
-  cov.p[0] += eps;
-  cov.p[1] += eps;
-  cov.p[2] += eps;
+  cov.p[0] += p[kMvnEps];
+  cov.p[1] += p[kMvnEps];
+  cov.p[2] += p[kMvnEps];
   // utils.cholesky3_parts
   Parts bp;
   float e[3];
@@ -198,143 +315,119 @@ __global__ void mc_kernel(const float* __restrict__ tab,
   const float L00 = l11 / e[0], L10 = l21 / e[1], L11 = l22 / e[1];
   const float L20 = l31 / e[2], L21 = l32 / e[2], L22 = l33 / e[2];
 
-  const float* sc = scal + (size_t)b * kNScal;
+  const float* sc = io.scal + (size_t)b * kNScal;
   const float v0 = sc[kV0], v1 = sc[kV1], v2 = sc[kV2];
   const float pm = sc[kPm], pw = sc[kPw], pln = sc[kPln];
   const float d0 = sc[kD0], idx_s = sc[kIdx], covered = sc[kCov];
   const float umax = sc[kUmax];
-  const float* dmean = dust + (size_t)b * 2 * kNl;
-  const float* dstd = dmean + kNl;
-  const bool use_feh = iprm[kUseFeh], use_loga = iprm[kUseLoga];
-  const bool use_dust = iprm[kUseDust], use_gal = iprm[kUseGal];
 
+  // per-model mixture terms, as the plain version rounds them
   float feh_g[3] = {0.f, 0.f, 0.f}, age_g[3] = {0.f, 0.f, 0.f};
-  if (use_feh) {
+  if (FEH) {
     const float feh = row(9);
-    for (int c = 0; c < 3; ++c) {
-      const float dm = prm[kFehMu + c] - feh;
-      feh_g[c] = -0.5f * (dm * dm / prm[kFehSig2 + c]) - prm[kFehLn + c];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float dm = p[kFehMu + j] - feh;
+      feh_g[j] = -0.5f * (dm * dm / p[kFehSig2 + j]) - p[kFehLn + j];
     }
   }
-  if (use_loga) {
+  if (LOGA) {
     const float age = expf(kLn10 * row(10)) * 1e-9f;
-    for (int c = 0; c < 3; ++c) {
-      const float xi = (age - prm[kAgeMu + c]) / prm[kAgeSig + c];
-      const float ans = -kLogSqrt2Pi - 0.5f * xi * xi - prm[kAgeLden + c];
-      age_g[c] = (age < prm[kAgeLo + c] || age > prm[kAgeHi + c])
-                     ? BK_NEG_BIG : ans;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float xi = (age - p[kAgeMu + j]) / p[kAgeSig + j];
+      const float ans = -kLogSqrt2Pi - 0.5f * xi * xi - p[kAgeLden + j];
+      age_g[j] = (age < p[kAgeLo + j] || age > p[kAgeHi + j]) ? BK_NEG_BIG
+                                                              : ans;
     }
   }
 
-  const float* zb = z ? z + (size_t)b * 3 * nmc_pad * K + k : nullptr;
-  const uint2 key = seeds ? make_uint2((uint32_t)seeds[2 * b],
-                                       (uint32_t)seeds[2 * b + 1])
-                          : make_uint2(0u, 0u);
-  const float avmin = prm[kAvmin], avmax = prm[kAvmax];
-  const float rvmin = prm[kRvmin], rvmax = prm[kRvmax];
+  const float* zb = RNG ? nullptr : io.z + (size_t)b * 3 * nmc_pad * K + k;
+  const uint2 key = RNG ? make_uint2((uint32_t)io.seeds[2 * b],
+                                     (uint32_t)io.seeds[2 * b + 1])
+                        : make_uint2(0u, 0u);
   float m_acc = BK_NEG_BIG, s_acc = 0.f, n_acc = 0.f;
   for (int c0 = 0; c0 < nmc_pad; c0 += 8) {
     float lnps[8];
     float cmax = -INFINITY;
+    // One draw per iteration: eight unrolled draws of the random-number
+    // instances (the libm slow paths of Box-Muller inlined eight times)
+    // spanned ~6000 instructions and ran slower on the card.
+#pragma unroll 1
     for (int r8 = 0; r8 < 8; ++r8) {
       const int rr = c0 + r8;
+      const bool real = rr < nmc;
       float z0 = 0.f, z1 = 0.f, z2 = 0.f;
-      if (zb) {
-        z0 = zb[(size_t)rr * K];
-        z1 = zb[(size_t)(nmc_pad + rr) * K];
-        z2 = zb[(size_t)(2 * nmc_pad + rr) * K];
-      } else if (rr < nmc) {
+      if (!RNG) {
+        z0 = __ldcs(zb + (size_t)rr * K);
+        z1 = __ldcs(zb + (size_t)(nmc_pad + rr) * K);
+        z2 = __ldcs(zb + (size_t)(2 * nmc_pad + rr) * K);
+      } else if (real) {
         philox_normals3(make_uint4((uint32_t)k, (uint32_t)rr, 0u, 0u), key,
                         &z0, &z1, &z2);
       }
       const float s = mean_s + L00 * z0;
       const float a = mean_a + L10 * z0 + L11 * z1;
       const float r = mean_r + L20 * z0 + L21 * z1 + L22 * z2;
-      const float s_pos = nmax(s, 1e-30f);
-      const float par = sqrtf(s_pos);
+      const float par = sqrtf(nmax(s, 1e-30f));
       const float dist = 1.0f / par;
-      float lnp = 0.f;
-      if (use_gal) {
-        const float X = dist * v0 + prm[kT0];
-        const float Y = dist * v1 + prm[kT1];
-        const float Zg = dist * v2 + prm[kT2];
-        const float R2 = X * X + Y * Y;
-        const float vol = 2.0f * logf(dist);
-        const float reff_t = sqrtf(R2 + prm[kRsThin2]);
-        const float lt = -((reff_t - prm[kRsolar]) / prm[kRthin]
-                           + (fabsf(Zg) - prm[kZsol]) / prm[kZthin]) + vol;
-        const float reff_k = sqrtf(R2 + prm[kRsThick2]);
-        const float lk = -((reff_k - prm[kRsolar]) / prm[kRthick]
-                           + (fabsf(Zg) - prm[kZsol]) / prm[kZthick])
-                         + vol + prm[kLnFThick];
-        const float r2 = R2 + Zg * Zg;
-        const float rp = sqrtf(r2 + prm[kRq2]);
-        const float q = prm[kQinf] - prm[kQdiff] * expf(1.0f - rp / prm[kRq]);
-        const float zq = Zg / q;
-        const float reff_h = sqrtf(R2 + zq * zq + prm[kRsHalo2]);
-        const float lh = prm[kEta] * logf(reff_h / prm[kReffSol]) + vol
-                         + prm[kLnFHalo];
-        const float mx = nmax(nmax(lt, lk), lh);
-        const float lnden = mx + logf(expf(lt - mx) + expf(lk - mx)
-                                      + expf(lh - mx));
-        lnp = lnp + lnden;
-        const float lw[3] = {lt - lnden, lk - lnden, lh - lnden};
-        if (use_feh) {
-          const float t0 = feh_g[0] + lw[0], t1 = feh_g[1] + lw[1],
-                      t2 = feh_g[2] + lw[2];
-          const float mf = nmax(nmax(t0, t1), t2);
-          lnp = lnp + mf + logf(expf(t0 - mf) + expf(t1 - mf)
-                                + expf(t2 - mf));
-        }
-        if (use_loga) {
-          const float t0 = age_g[0] + lw[0], t1 = age_g[1] + lw[1],
-                      t2 = age_g[2] + lw[2];
-          const float ma = nmax(nmax(t0, t1), t2);
-          lnp = lnp + ma + logf(expf(t0 - ma) + expf(t1 - ma)
-                                + expf(t2 - ma));
-        }
+      float lnp = BK_NEG_BIG;
+      if (real) {
+        const float dp = par - pm;
+        lnp = log_prior<GAL, FEH, LOGA, DUST>(c, dist, a, v0, v1, v2, feh_g,
+                                              age_g, d0, idx_s, umax,
+                                              covered, lad)
+              - 0.5f * fmaf(dp * dp, pw, pln);
+        const bool inb = (s >= 1e-20f) && (a >= p[kAvmin])
+                         && (a <= p[kAvmax]) && (r >= p[kRvmin])
+                         && (r <= p[kRvmax]);
+        lnp = (inb && isfinite(lnp)) ? lnp : BK_NEG_BIG;
+        n_acc += inb ? 1.0f : 0.0f;
       }
-      if (use_dust) {
-        const float u = nclip((dist - d0) * idx_s, 0.0f, umax);
-        const int lo = min((int)floorf(u), kNl - 1);
-        const float w_lo = fmaxf(0.0f, 1.0f - fabsf(u - (float)lo));
-        float mean_i = w_lo * dmean[lo];
-        float std_i = w_lo * dstd[lo];
-        if (lo + 1 < kNl) {
-          const float w_hi = fmaxf(0.0f, 1.0f - fabsf(u - (float)(lo + 1)));
-          mean_i = mean_i + w_hi * dmean[lo + 1];
-          std_i = std_i + w_hi * dstd[lo + 1];
-        }
-        const float mean_d = prm[kDustScale] * mean_i + prm[kDustOffset];
-        const float sd = prm[kDustSmoothScale] * std_i;
-        const float err2 = sd * sd + prm[kDustScatter2];
-        const float da = a - mean_d;
-        const float dchi2 = da * da / err2;
-        const float dpdf = -0.5f * (dchi2 + logf(kTwoPi * err2));
-        lnp = lnp + (covered > 0.5f ? dpdf : 0.0f);
-      }
-      const float dp = par - pm;
-      lnp = lnp - 0.5f * (dp * dp * pw + pln);
-      const bool inb = (s >= 1e-20f) && (a >= avmin) && (a <= avmax)
-                       && (r >= rvmin) && (r <= rvmax) && (rr < nmc);
-      lnp = (inb && isfinite(lnp)) ? lnp : BK_NEG_BIG;
-      lnmc[dk + (size_t)rr * K] = lnp;
-      dist_o[dk + (size_t)rr * K] = dist;
-      red_o[dk + (size_t)rr * K] = a;
-      dred_o[dk + (size_t)rr * K] = r;
+      const size_t o = dk + (size_t)rr * K;
+      __stcs(io.lnmc + o, lnp);
+      __stcs(io.dist + o, dist);
+      __stcs(io.red + o, a);
+      __stcs(io.dred + o, r);
       lnps[r8] = lnp;
       cmax = nmax(cmax, lnp);
-      n_acc += inb ? 1.0f : 0.0f;
     }
     const float nmx = nmax(m_acc, cmax);
     float ssum = 0.f;
-    for (int r8 = 0; r8 < 8; ++r8) ssum += expf(lnps[r8] - nmx);
-    s_acc = s_acc * expf(m_acc - nmx) + ssum;
+#pragma unroll
+    for (int r8 = 0; r8 < 8; ++r8) ssum += __expf(lnps[r8] - nmx);
+    s_acc = fmaf(s_acc, __expf(m_acc - nmx), ssum);
     m_acc = nmx;
   }
-  agg[ak] = m_acc + logf(nmax(s_acc, 1e-37f));
-  agg[ak + K] = n_acc;
-  for (int j = 0; j < 6; ++j) agg[ak + (size_t)(2 + j) * K] = cov.p[j];
+  __stcs(io.agg + ak, m_acc + logf(nmax(s_acc, 1e-37f)));
+  __stcs(io.agg + ak + K, n_acc);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) __stcs(io.agg + ak + (size_t)(2 + j) * K,
+                                     cov.p[j]);
+}
+
+using McFn = void (*)(McIO, McConst);
+
+// The instance for a mode and its prior flags; without the Galactic
+// prior the feh and age mixtures do not apply (pallas_mc.py:285-315).
+template <bool RNG, bool GAL, bool FEH, bool LOGA>
+McFn pick_dust(bool dust) {
+  return dust ? mc_kernel<RNG, GAL, FEH, LOGA, true>
+              : mc_kernel<RNG, GAL, FEH, LOGA, false>;
+}
+
+template <bool RNG>
+McFn pick(bool gal, bool feh, bool loga, bool dust) {
+  if (!gal) return pick_dust<RNG, false, false, false>(dust);
+  if (feh) return loga ? pick_dust<RNG, true, true, true>(dust)
+                       : pick_dust<RNG, true, true, false>(dust);
+  return loga ? pick_dust<RNG, true, false, true>(dust)
+              : pick_dust<RNG, true, false, false>(dust);
+}
+
+McFn mc_instance(bool rng, bool gal, bool feh, bool loga, bool dust) {
+  return rng ? pick<true>(gal, feh, loga, dust)
+             : pick<false>(gal, feh, loga, dust);
 }
 
 }  // namespace
@@ -342,23 +435,50 @@ __global__ void mc_kernel(const float* __restrict__ tab,
 // tab (B, n_rows, K) gathered fit pack; valid (B, K) 0/1; scal (B, 10);
 // dust (B, 2, 128) ladder mean | std; either z (B, 3, nmc_pad, K)
 // standard normals or seeds (B, 2) int32 Philox keys, the other null;
-// flags (B, K / tile) int32 tile-active; prm / iprm constants (see enums);
-// outputs lnmc, dist, red, dred (B, nmc_pad, K) and agg (B, 8, K) =
+// flags (B, K / tile) int32 tile-active; prm (n_prm) / iprm (n_iprm)
+// constants in host memory (see the enums), copied into the launch's
+// parameters; outputs lnmc, dist, red, dred (B, nmc_pad, K) and agg
+// (B, 8, K) =
 // [logsumexp, in-bounds count, 6 repaired covariance parts].
 extern "C" int bk_mc(const float* tab, const float* valid, const float* scal,
                      const float* dust, const float* z, const int* seeds,
                      const int* flags, const float* prm, const int* iprm,
-                     float* lnmc,
-                     float* dist, float* red, float* dred, float* agg,
-                     int B, int K, int n_rows, int nmc, int nmc_pad,
-                     int tile, int n_prm, void* stream) {
-  if (n_prm != kNPrm || nmc_pad % 8 != 0 || K % tile != 0
+                     float* lnmc, float* dist, float* red, float* dred,
+                     float* agg, int B, int K, int n_rows, int nmc,
+                     int nmc_pad, int tile, int n_prm, int n_iprm,
+                     void* stream) {
+  if (n_prm != kNPrm || n_iprm != kNIprm || nmc_pad % 8 != 0
+      || nmc_pad < nmc || tile <= 0 || K % tile != 0
       || (z == nullptr) == (seeds == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  dim3 grid(bk_ceil_div(K, threads), B);
-  mc_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      tab, valid, scal, dust, z, seeds, flags, prm, iprm, lnmc, dist, red,
-      dred, agg, B, K, n_rows, nmc, nmc_pad, tile);
+  if (B == 0 || K == 0) return 0;
+  McConst c;
+  memcpy(c.prm, prm, sizeof c.prm);
+  memcpy(c.iprm, iprm, sizeof c.iprm);
+  c.n_rows = n_rows;
+  c.K = K;
+  c.nmc = nmc;
+  c.nmc_pad = nmc_pad;
+  c.tile = tile;
+  const McIO io{tab, valid, scal, dust, z, seeds, flags,
+                lnmc, dist, red, dred, agg};
+  const McFn fn = mc_instance(seeds != nullptr, iprm[kUseGal] != 0,
+                              iprm[kUseFeh] != 0, iprm[kUseLoga] != 0,
+                              iprm[kUseDust] != 0);
+  dim3 grid(bk_ceil_div(K, kThreads), B);
+  fn<<<grid, kThreads, 0, (cudaStream_t)stream>>>(io, c);
   return (int)cudaGetLastError();
+}
+
+// Registers and local bytes per thread of the K4 instance for a mode
+// (`rng`) and prior flags.
+extern "C" int bk_mc_attrs(int rng, int gal, int feh, int loga, int dust,
+                           int* out) {
+  cudaFuncAttributes at;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &at, (const void*)mc_instance(rng, gal, feh, loga, dust));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = at.numRegs;
+  out[1] = (int)at.localSizeBytes;
+  return 0;
 }

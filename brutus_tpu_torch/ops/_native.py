@@ -161,12 +161,12 @@ KERNELS = {
     # count each, so a run shows which mode ran.
     "mc_fed": Kernel(
         "mc_fed", "bk_mc",
-        [P] * 14 + [I] * 7,
+        [P] * 14 + [I] * 8,
         "brutus_tpu_torch/csrc/mc.cu",
         "brutus_tpu/ops/pallas_mc.py:101"),
     "mc_rng": Kernel(
         "mc_rng", "bk_mc",
-        [P] * 14 + [I] * 7,
+        [P] * 14 + [I] * 8,
         "brutus_tpu_torch/csrc/mc.cu",
         "brutus_tpu/ops/pallas_mc.py:101"),
 }

@@ -66,18 +66,21 @@ def _gal_consts(g: GalPriorConfig):
 
 
 @lru_cache(maxsize=16)
-def _mc_params(cfg, gal_cfg, dust_cfg, device):
-    """Float constants in the order of `csrc/mc.cu`'s `prm` enum."""
+def _mc_params(cfg, gal_cfg, dust_cfg):
+    """Float constants in the order of `csrc/mc.cu`'s `prm` enum, the
+    divisors of the log-densities as reciprocals, in host memory: the C
+    entry copies them into the launch's parameters."""
     g, d = gal_cfg, dust_cfg
     reff_sol, comps, ages = _gal_consts(g)
     w = cfg.psd_width
     vals = [cfg.avlim[0], cfg.avlim[1], cfg.rvlim[0], cfg.rvlim[1],
             w, 1.0 / w ** 2, w ** 2, cfg.mvn_eps,
             float(_T[0]), float(_T[1]), float(_T[2]),
-            g.R_solar, abs(g.Z_solar), g.R_thin, g.Z_thin, g.Rs_thin ** 2,
-            g.R_thick, g.Z_thick, g.Rs_thick ** 2, g.r_q_halo,
-            g.r_q_halo ** 2, g.q_halo_inf, g.q_halo_inf - g.q_halo_ctr,
-            g.Rs_halo ** 2, -g.eta_halo, reff_sol, math.log(g.f_thick),
+            g.R_solar, abs(g.Z_solar), 1.0 / g.R_thin, 1.0 / g.Z_thin,
+            g.Rs_thin ** 2, 1.0 / g.R_thick, 1.0 / g.Z_thick,
+            g.Rs_thick ** 2, 1.0 / g.r_q_halo, g.r_q_halo ** 2,
+            g.q_halo_inf, g.q_halo_inf - g.q_halo_ctr, g.Rs_halo ** 2,
+            -g.eta_halo, 1.0 / reff_sol, math.log(g.f_thick),
             math.log(g.f_halo)]
     vals += [mu for mu, _ in comps]
     vals += [sig ** 2 for _, sig in comps]
@@ -85,7 +88,15 @@ def _mc_params(cfg, gal_cfg, dust_cfg, device):
     for j in range(5):
         vals += [a[j] for a in ages]
     vals += [d.scale, d.offset, d.smooth * d.scale, d.scatter ** 2]
-    return torch.tensor(vals, dtype=torch.float32, device=device)
+    return torch.tensor(vals, dtype=torch.float32)
+
+
+@lru_cache(maxsize=64)
+def _mc_iparams(row_map, use_feh, use_loga, use_dust, use_gal, passes):
+    """Integer constants of `csrc/mc.cu`'s `iprm` enum, in host memory."""
+    return torch.tensor(list(row_map) + [int(use_feh), int(use_loga),
+                                         int(use_dust), int(use_gal),
+                                         passes], dtype=torch.int32)
 
 
 def tile_flags(valid, tile):
@@ -278,18 +289,20 @@ def mc_integrate(tab, row_map, valid, scal, dust, z, n_mc, tile,
         check(seeds, "seeds", (B, 2), dtype=torch.int32, device=dev)
     if nmc_pad % 8 or nmc_pad < n_mc:
         raise ValueError("z must carry a multiple of 8 draw rows >= n_mc")
-    prm = _mc_params(cfg, gal_cfg, dust_cfg, dev)
-    iprm = torch.tensor(list(row_map) + [int(use_feh), int(use_loga),
-                                         int(use_dust), int(use_gal),
-                                         cfg.psd_max_passes],
-                        dtype=torch.int32, device=dev)
+    prm = _mc_params(cfg, gal_cfg, dust_cfg)
+    iprm = _mc_iparams(tuple(int(i) for i in row_map), bool(use_feh),
+                       bool(use_loga), bool(use_dust), bool(use_gal),
+                       cfg.psd_max_passes)
+    cpu = torch.device("cpu")
+    check(prm, "prm", device=cpu)
+    check(iprm, "iprm", dtype=torch.int32, device=cpu)
     shp = (B, nmc_pad, K)
     lnmc, dist, red, dred = (torch.empty(shp, dtype=torch.float32,
                                          device=dev) for _ in range(4))
     agg = torch.empty((B, N_AGG, K), dtype=torch.float32, device=dev)
     KERNELS["mc_fed" if seeds is None else "mc_rng"](
         tab, valid, scal, dust, z, seeds, flags, prm, iprm, lnmc, dist, red,
-        dred, agg, B, K, n_rows, n_mc, nmc_pad, t, prm.numel())
+        dred, agg, B, K, n_rows, n_mc, nmc_pad, t, prm.numel(), iprm.numel())
     return lnmc, dist, red, dred, agg
 
 

@@ -9,17 +9,20 @@ Phases, each printing one line with its elapsed seconds:
 
 1. the card's name and power limit (`nvidia-smi`);
 2. build of the CUDA kernels (one nvcc call, `build/kernels/`), and the
-   registers and local memory per thread of the K1 and K2 instances of
-   the main paths (F=8) and of K1's run-time-F instance;
+   registers and local memory per thread of the instances of the main
+   paths (K1 and K2 at F=8, K3, K4 in both modes with every prior on)
+   and of K1's run-time-F instance;
 3. each kernel, in each of its modes, against its plain PyTorch
    version on the card, at the widths of the main paths: K2 screen
    (750k models, 8 stars and the funnel's 128), K3 slab
    gather and K1 fit (128 stars, 12288-model shortlists), K1 in dense
    mode (16 stars x 750,080 models), K4 MC integration with fed normals
-   and with its own random numbers (16 stars, 2048 models), with the
-   deviation, the tolerance and the times of kernel, plain version,
-   library call (where one exists) and bound (K1's counts the polish
-   only for the pairs its freeze lets move, `moving_pairs`);
+   and with its own random numbers (the funnel's 128 stars and 16, 2048
+   selected models, the path's skip tiles of 512), with the deviation,
+   the tolerance and the times of kernel, plain version, library call
+   (where one exists) and bound (K1's counts the polish only for the
+   pairs its freeze lets move, `moving_pairs`; K4's the draws of valid
+   models, with its special functions on either pipe, `mc_bound`);
 4. the main path: `BruteForce.fit` (funnel engine, K4 making its own
    normals, the default) on a 750,000-model, 8-band correlated grid,
    512 stars in 4 batches of 128, with parallax, Galactic and dust
@@ -32,8 +35,9 @@ Phases, each printing one line with its elapsed seconds:
    256 stars in batches of 16, timed as stars/s;
 7. a `kernels` JSON line: each kernel's launches during the path that
    runs it (phase 4, 5 or 6; each must be > 0) and its phase-3
-   deviation and times; for K2 and K1 also the registers and local
-   bytes per thread, for K1 the share of pairs moving in the polish.
+   deviation and times; the registers and local bytes per thread of
+   each (K4: of the main path's instance), for K1 the share of pairs
+   moving in the polish, for K4 its time and bound at 16 stars.
 
 Any failure exits non-zero.  The last line of a card run is the device
 record `{"ok": true, "device": {...}}`.
@@ -45,7 +49,8 @@ with fed normals / funnel at 512 stars, dense twice at 256, then the
 funnel at 4096), per path a `torch.profiler` trace of one warm fit
 (device time by kernel, busy time, idle share), and each hand-written
 kernel's launches x (ms - bound) on the path that runs it (K1's bound
-from the share of pairs moving on the path's first batch), the order
+from the share of pairs moving on the path's first batch, K4's from its
+valid and active columns per launch), the order
 in which kernel redesigns would win the most time back; the last line
 is one JSON object with these numbers.  The script imports nothing of
 JAX nor of the JAX package; its grid generator is its own copy of the
@@ -56,6 +61,9 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -155,8 +163,51 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def bound(nbytes, ops):
-    b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def device_ms(fn, key, reps):
+    """Mean device time per launch of the kernels whose name holds `key`
+    over `reps` calls of `fn()` (after one warm-up), from
+    `torch.profiler`: the kernel alone, without the host work of its
+    wrapper that CUDA events around the call would also count once the
+    kernel is shorter than that work."""
+    fn()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if key in e.key and _device_us(e) > 0]
+    if not hits:
+        raise AssertionError(f"the profiler saw no kernel named {key}")
+    return sum(_device_us(e) for e in hits) / 1e3 / sum(e.count
+                                                        for e in hits)
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+# A special function (exp, log, square root, division, sine, cosine)
+# runs on the special-function units, or as ~24 float32 operations on
+# the FMA pipes: a polynomial of ~10 FMAs and its range reduction, as
+# libm evaluates log, sine and cosine.
+SFU_AS_OPS = 24
+
+
+def bound(nbytes, ops, sfu=0, sfu_per_s=1.0):
+    """`(ms, "bytes" | "operations")`: the larger of the bytes over the
+    HBM rate and the time of the float32 operations `ops` and special
+    functions `sfu`, the two pipes working side by side: the operations
+    at the float32 rate, the special functions at `sfu_per_s` or as
+    `SFU_AS_OPS` operations each, so many of them moved to the FMA pipes
+    that both finish together (the least time)."""
+    b = nbytes / HBM_BYTES_PER_S
+    t_ops, t_sfu = ops / F32_OPS_PER_S, sfu / sfu_per_s
+    per_op, per_sfu = SFU_AS_OPS / F32_OPS_PER_S, 1.0 / sfu_per_s
+    moved = min(max((t_sfu - t_ops) / (per_op + per_sfu), 0.0), sfu)
+    o = max(t_ops + moved * per_op, t_sfu - moved * per_sfu)
     return 1e3 * max(b, o), ("bytes" if b >= o else "operations")
 
 
@@ -225,19 +276,61 @@ def fit_dense_bound(B, Mp, F, moving):
                  B * Mp * pair + moving * move + Mp * model)
 
 
-def mc_bound(B, K, n_rows, nmc, active, rng):
-    """K4 over `active` (star, model) columns of active tiles; the fed
-    mode reads the normals, the random-number mode does ~110 more
-    operations per real draw (Philox and Box-Muller, counted at the
-    float32 rate)."""
+# K4's counts per draw and per model, from the function's steps (an
+# exp, a log, a square root or a division counts one special function;
+# a division by a constant is a multiply).  A real draw of a valid
+# model: the MVN transform (12 operations), parallax and distance (2
+# special functions), the Galactic disks and halo with their
+# logsumexp (~60 operations; 4 square roots, 4 exps, 3 logs, 1
+# division), the feh and age mixtures (~24; 6 exps, 2 logs), the dust
+# hat interpolation and pdf (~34; 1 division, 1 log), the parallax
+# prior, bounds test and logsumexp step (~21; 1 exp).  A valid model's
+# set-up: the inverse, one repair test and the Cholesky (~150; ~20
+# special functions).  The random-number mode adds per draw Philox's
+# ~100 integer operations (ten rounds of two 32-bit multiplies, two
+# high multiplies, four xors, two key adds), counted twice because the
+# card's int32 rate is half its float32 rate, and Box-Muller's ~23
+# operations and 7 special functions (2 logs, 2 square roots, 2
+# cosines, 1 sine).
+MC_DRAW_OPS, MC_DRAW_SFU, MC_MODEL_OPS, MC_MODEL_SFU = 150, 25, 150, 20
+MC_RNG_OPS, MC_RNG_SFU = 2 * 100 + 23, 7
+# The special-function units: 16 results per SM per clock (NVIDIA's
+# CUDA C++ programming guide, throughput of arithmetic instructions,
+# compute capability 9.0) on the H100 SXM's 132 SMs.
+SFU_PER_SM_CLOCK, N_SM = 16, 132
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def mc_bound(B, K, nmc, n_valid, active, rng, clock_mhz):
+    """K4's bound over B stars x K selected models, of which `n_valid`
+    are valid and `active` columns lie in model tiles the skip leaves
+    active: the largest of the bytes (valid plane, the 11 mapped table
+    rows of active columns, per-star scalars and dust ladder, the fed
+    normals of active columns or the seeds, and every output, constants
+    of skipped columns included) over the HBM rate, and the time of the
+    float32 operations of the real draws of valid models and their
+    set-up with their special functions, at the special-function rate
+    of `clock_mhz` or on the FMA pipes (`bound`)."""
     nmcp = -(-nmc // 8) * 8
-    nbytes = 4 * (B * (n_rows + 1) * K + 4 * B * nmcp * K + 8 * B * K)
-    draw_ops = 200 * nmcp
+    nbytes = 4 * (B * K + 11 * active + B * (10 + 2 * 128)
+                  + 4 * B * nmcp * K + 8 * B * K)
+    ops = n_valid * (nmc * MC_DRAW_OPS + MC_MODEL_OPS)
+    sfu = n_valid * (nmc * MC_DRAW_SFU + MC_MODEL_SFU)
     if rng:
-        draw_ops += 110 * nmc
+        nbytes += 8 * B
+        ops += n_valid * nmc * MC_RNG_OPS
+        sfu += n_valid * nmc * MC_RNG_SFU
     else:
-        nbytes += 4 * B * 3 * nmcp * K
-    return bound(nbytes, active * (draw_ops + 8 * 100))
+        nbytes += 4 * 3 * nmcp * active
+    return bound(nbytes, ops, sfu, SFU_PER_SM_CLOCK * N_SM * clock_mhz * 1e6)
 
 
 def nvidia_smi():
@@ -354,7 +447,7 @@ def phase_kernels(mc, labels, dev, results):
     from brutus_tpu_torch.convert import from_numpy_grid
     from brutus_tpu_torch.dustmap import uniform_profile
     from brutus_tpu_torch.ops import fit as TFD, funnel as TF, mc as TMC
-    from brutus_tpu_torch.ops import posterior as TP, rng
+    from brutus_tpu_torch.ops import posterior as TP
     cfg = FitConfig()
     M, F, _ = mc.shape
     tabs = from_numpy_grid(mc, labels, device=dev)
@@ -465,74 +558,104 @@ def phase_kernels(mc, labels, dev, results):
     report_fit(f"phase 3 K1 dense (16 stars x {Mpd} models)", dev1, ms, pms,
                bms, by, moving / (16 * Mpd), t0)
 
-    # K4 at 16 stars x 2048 selected models, from the select stage, in
-    # both modes
-    t0 = time.time()
+    # K4 on the select stage of the 128 stars (the funnel path's shape,
+    # 2048 selected models) and of its first 16, in both modes
     pcfg = PosteriorConfig()
     names = TF.pack_row_names(tabs.aux_names)
-    dmap = smoke_dustmap()
-    dd, dm, ds = dmap.query((s["coords"][b16, 0], s["coords"][b16, 1]))
-    dd, dm, ds = uniform_profile(dd, dm, ds, n=TMC.NL_PAD)
-    prof = (t(dd), t(dm), t(ds))
-    coord = t(s["coords"][b16])
-    sel = TP._select_stage(pack[b16].contiguous(), names, ndim[b16], coord,
-                           t(s["plx"][b16]), t(s["plxe"][b16]), prof, pcfg,
+    dd, dm, ds = smoke_dustmap().query((s["coords"][:, 0],
+                                        s["coords"][:, 1]))
+    prof = tuple(t(x) for x in uniform_profile(dd, dm, ds, n=TMC.NL_PAD))
+    coord, plx, plxe = t(s["coords"]), t(s["plx"]), t(s["plxe"])
+    sel = TP._select_stage(pack, names, ndim, coord, plx, plxe, prof, pcfg,
                            GalPriorConfig(), DustPriorConfig(), True)
-    scal, dust = TP._star_scalars(coord, t(s["plx"][b16]),
-                                  t(s["plxe"][b16]), prof, True)
-    K = sel["table"].shape[2]
+    scal, dust = TP._star_scalars(coord, plx, plxe, prof, True)
+    clock = sm_clock_mhz()
+    at16 = {}
+    for nb in (16, 128):
+        for name, r in phase_mc(sel, names, scal, dust, pcfg, nb, clock,
+                                dev).items():
+            if nb == 16:
+                at16[name] = dict(ms_16_stars=r["ms"],
+                                  bound_16_stars_ms=r["bound_ms"])
+            else:
+                results[name] = dict(r, **at16[name])
+
+
+def phase_mc(sel, names, scal, dust, pcfg, nb, clock, dev):
+    """K4 in both modes against its plain version on the first `nb` stars
+    of a select stage `sel`, at the funnel path's skip tile; returns each
+    mode's `kernels` entry."""
+    from brutus_tpu_torch.config import GalPriorConfig, DustPriorConfig
+    from brutus_tpu_torch.ops import mc as TMC, posterior as TP, rng
+    from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
+    b = slice(0, nb)
+    tab = sel["table"][b].contiguous()
+    valid = sel["valid"][b].to(torch.float32)
+    K = tab.shape[2]
     nmc, nmcp = pcfg.n_mc_prior, TMC.nmc_pad_of(pcfg.n_mc_prior)
-    # The fit's draws of rows 0-15 with seed 1: the fed normals are the
+    # The fit's draws of rows 0..nb-1 with seed 1: the fed normals are the
     # ones the random-number mode makes from the same star keys.
-    rows = torch.arange(16, device=dev)
+    rows = torch.arange(nb, device=dev)
     z = TP.draw_noise(1, rows, K, dataclasses.replace(
         pcfg, kernel_rng=False), dev).z
     seeds = TP.draw_noise(1, rows, K, pcfg, dev).seeds
-    valid = sel["valid"].to(torch.float32)
     rm = TP._pack_row_map(names)
     cf = (pcfg, GalPriorConfig(), DustPriorConfig(), True, True, True)
-    base = (sel["table"], rm, valid, scal, dust)
-    flags = TMC.tile_flags(valid > 0.5, 512)
-    active = flags.repeat_interleave(512, 1).sum().item()
+    base = (tab, rm, valid, scal[b].contiguous(), dust[b].contiguous())
+    tile = 512                  # the skip tile the funnel path passes
+    flags = TMC.tile_flags(valid > 0.5, tile)
+    active = int(flags.sum().item()) * tile
+    n_valid = int((valid > 0.5).sum().item())
     # Compared on valid models whose precision is positive definite: the
     # fixed-pass PSD repair of indefinite ones is chaotic in float32.
-    from brutus_tpu_torch.utils import inverse3_sym_parts, is_psd3_parts
-    tab = sel["table"]
     pd = is_psd3_parts(inverse3_sym_parts(tuple(
         tab[:, rm[3 + j]] for j in range(6))))
     v = (valid > 0.5) & pd
     modes = (("mc_fed", "fed normals", z, None, lambda: z),
              ("mc_rng", "in-kernel Philox normals", None, seeds,
               lambda: rng.normals(seeds, K, nmc, nmcp)))
+    out = {}
     for name, what, zk, sk, plain_z in modes:
         t0 = time.time()
-        run = lambda: TMC.mc_integrate(*base, zk, nmc, 512, *cf, seeds=sk)
+        run = lambda: TMC.mc_integrate(*base, zk, nmc, tile, *cf, seeds=sk)
         plain = lambda: TMC.mc_integrate_plain(*base, plain_z(), flags, nmc,
-                                               512, *cf)
+                                               tile, *cf)
         kk, qq = run(), plain()
         dl = (kk[4][:, 0] - qq[4][:, 0]).abs()[v]
         err = dl.max().item()
         # The log-integral per model within 1e-3 relative (absolute
-        # below 1); every output within rtol = atol = 1e-3.
+        # below 1); every output within rtol = atol = 1e-3; the same
+        # outputs finite.
         rel_l = (dl / qq[4][:, 0][v].abs().clamp(min=1.0)).max().item()
-        n_far = sum(int((~torch.isclose(a, b, rtol=1e-3, atol=1e-3))[
-            v[:, None, :].expand_as(a)].sum()) for a, b in zip(kk, qq))
+        n_far = sum(int((~torch.isclose(a, q, rtol=1e-3, atol=1e-3))[
+            v[:, None, :].expand_as(a)].sum()) for a, q in zip(kk, qq))
+        finite = all(torch.equal(torch.isfinite(a), torch.isfinite(q))
+                     for a, q in zip(kk, qq))
+        fields = {f: (a - q).abs()[v[:, None, :].expand_as(a)].max().item()
+                  for f, a, q in zip(("dist", "red", "dred"), kk[1:4],
+                                     qq[1:4])}
         del kk, qq
-        ms = cuda_ms(run, 20)
-        pms = cuda_ms(plain, 5)
-        bms, by = mc_bound(16, K, tab.shape[1], nmc, active,
-                           rng=sk is not None)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                             bound_ms=bms, bound_by=by, library_ms=None)
-        log(f"phase 3 K4 mc, {what} (16 stars x {K}, {int(v.sum())} valid "
-            f"positive-definite models): max |dev| of the MC log-integral "
-            f"{err:.4g}, relative to max(1, |plain|) {rel_l:.3g} (tol "
-            f"1e-3), outputs outside rtol = atol = 1e-3 {n_far} (tol 0), "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
-            f"({by})  [{time.time() - t0:.1f} s]")
-        if not (rel_l <= 1e-3 and n_far == 0):
+        ms = device_ms(run, "mc_kernel", 20)
+        call_ms = cuda_ms(run, 20)
+        pms = cuda_ms(plain, 3)
+        bms, by = mc_bound(nb, K, nmc, n_valid, active, sk is not None,
+                           clock)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=None)
+        log(f"phase 3 K4 mc, {what} ({nb} stars x {K}, {int(v.sum())} valid "
+            f"positive-definite models, {active} active columns at tiles of "
+            f"{tile}): max |dev| of the MC log-integral {err:.4g}, relative "
+            f"to max(1, |plain|) {rel_l:.3g} (tol 1e-3), outputs outside "
+            f"rtol = atol = 1e-3 {n_far} (tol 0), finiteness equal "
+            f"{finite}; max |dev| of dist {fields['dist']:.4g}, red "
+            f"{fields['red']:.4g}, dred {fields['dred']:.4g}; kernel "
+            f"{ms:.4f} ms (device), {call_ms:.4f} ms per call, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by})  "
+            f"[{time.time() - t0:.1f} s]")
+        if not (rel_l <= 1e-3 and n_far == 0 and finite):
             raise AssertionError(f"K4 MC ({what}) disagrees with its plain "
-                                 f"version")
+                                 f"version at {nb} stars")
+    return out
 
 
 def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True):
@@ -605,7 +728,8 @@ PATHS = {
     "dense": dict(batch=16, screen_k=0, kernel_rng=True, n=256),
 }
 # K1's bounds take the share of pairs its freeze lets move on the path
-# (`path_moving_shares`).
+# (`path_moving_shares`), K4's its valid and active columns per launch
+# (`mc_columns`) and the card's clock.
 PATH_KERNELS = {
     ("funnel", "screen_kernel"): ("screen", lambda sh: screen_bound(
         128, 750_080, 8, 256)),
@@ -614,9 +738,9 @@ PATH_KERNELS = {
     ("funnel", "fit_kernel"): ("fit", lambda sh: fit_bound(
         128, 12288, 27, 8, 15, sh["fit"] * 128 * 12288)),
     ("funnel", "mc_kernel"): ("mc_rng", lambda sh: mc_bound(
-        128, 2048, 15, 50, 128 * 2048, rng=True)),
+        128, 2048, 50, *sh["mc"], True, sh["clock"])),
     ("funnel_fed", "mc_kernel"): ("mc_fed", lambda sh: mc_bound(
-        128, 2048, 15, 50, 128 * 2048, rng=False)),
+        128, 2048, 50, *sh["mc"], False, sh["clock"])),
     ("dense", "fit_kernel"): ("fit_dense", lambda sh: fit_dense_bound(
         16, 750_080, 8, sh["fit_dense"] * 16 * 750_080)),
 }
@@ -660,6 +784,82 @@ def path_moving_shares(mc, labels, dev):
     return shares
 
 
+def mc_columns(bf, s, dev):
+    """K4's (star, model) columns per launch in a funnel fit of the stars
+    `s`, averaged over its launches: `(valid, active)`, active at the
+    skip tile the path passes."""
+    from brutus_tpu_torch.ops import mc as TMC, posterior as TP
+    calls = []
+    orig = TP.mc_integrate
+
+    def record(*a, **kw):
+        v, tile = a[2] > 0.5, a[7]
+        calls.append((int(v.sum().item()),
+                      int(TMC.tile_flags(v, tile).sum().item()) * tile))
+        return orig(*a, **kw)
+
+    TP.mc_integrate = record
+    try:
+        fit_stars(bf, s, dev, 128, 12288, 2048)
+    finally:
+        TP.mc_integrate = orig
+    return tuple(sum(c[i] for c in calls) / len(calls) for i in (0, 1))
+
+
+def mc_code():
+    """K4's code, per instance on the main paths (every prior on), from
+    the build: registers and stack bytes (the `-Xptxas=-v` log), and the
+    static SASS instructions and MUFU (special-function) instructions of
+    the whole kernel and of its draw loop, its largest loop
+    (`cuobjdump -sass`).  Instances are named by their template flags
+    (mode, Galactic, feh, age, dust)."""
+    from brutus_tpu_torch.ops import _native
+    path, blog = _native.build()
+    ptxas, cur = {}, None
+    for line in blog.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = ptxas.setdefault(m.group(1), {})
+        elif cur is not None:
+            for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("registers", r"Used (\d+) registers")):
+                m = re.search(pat, line)
+                if m:
+                    cur.setdefault(key, int(m.group(1)))
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, code = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            code = None
+            if "mc_kernel" in m.group(1):
+                code = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and code is not None:
+            code.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for name, ins in funcs.items():
+        flags = "".join(re.findall(r"Lb([01])E", name))
+        if flags and not flags.endswith("1111"):
+            continue
+        loop = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                loop = max(loop, body, key=len)
+        mufu = lambda xs: sum("MUFU" in t for t in xs)
+        out[flags or "one instance"] = dict(
+            ptxas.get(name, {}), sass=len(ins),
+            sass_mufu=mufu(t for _, t in ins), loop_sass=len(loop),
+            loop_mufu=mufu(loop))
+    return out
+
+
 def profile_path(bf, s, dev, path, shares, quiet=False):
     """Device busy time, idle share, the top device events and the
     hand-written kernels' launches, ms and lost time of one warm fit of
@@ -672,33 +872,31 @@ def profile_path(bf, s, dev, path, shares, quiet=False):
         fit_stars(bf, s, dev, p["batch"], p["screen_k"], 2048,
                   p["kernel_rng"])
     wall = time.time() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     # Device-side events only (kernels and copies): the host operators
     # that launched them carry the same time again.
     cuda_type = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == cuda_type
-              and dev_us(e) > 0]
+              and _device_us(e) > 0]
     if quiet or not events:
         return None
-    busy = sum(dev_us(e) for e in events) / 1e6
-    top = sorted(events, key=dev_us, reverse=True)[:10]
+    busy = sum(_device_us(e) for e in events) / 1e6
+    top = sorted(events, key=_device_us, reverse=True)[:10]
     kernels = {}
     for (kp, key), (name, kbound) in PATH_KERNELS.items():
         hits = [e for e in events if kp == path and key in e.key]
         if hits:
             n = sum(e.count for e in hits)
-            ms = sum(dev_us(e) for e in hits) / 1e3 / n
+            ms = sum(_device_us(e) for e in hits) / 1e3 / n
             bms, by = kbound(shares)
             kernels[name] = dict(launches=n, ms=ms, bound_ms=bms,
                                  bound_by=by, lost_ms=n * (ms - bms))
     log(f"profiled {path} fit of {len(s['idx'])} stars: wall {wall:.3f} s, "
         f"device busy {busy:.4f} s, idle share {1 - busy / wall:.3f}")
     for e in top:
-        log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"  {_device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return dict(wall_s=wall, device_busy_s=busy, idle_share=1 - busy / wall,
-                top_device_ms={e.key[:60]: dev_us(e) / 1e3 for e in top},
+                top_device_ms={e.key[:60]: _device_us(e) / 1e3 for e in top},
                 kernels=kernels)
 
 
@@ -743,7 +941,13 @@ def profile_main(dev):
     # The profiler's first window carries its own start-up (seconds of
     # wall): profile once untimed.
     shares = path_moving_shares(mc, labels, dev)
-    log(f"K1 pairs moving in the polish, by path: {shares}")
+    shares["mc"] = mc_columns(bf, s[512], dev)
+    shares["clock"] = sm_clock_mhz()
+    log(f"K1 pairs moving in the polish, by path; K4's valid and active "
+        f"columns per launch on the funnel; max SM clock: {shares}")
+    code = mc_code()
+    log(f"K4 code by instance (flags: random numbers, Galactic, feh, age, "
+        f"dust): {code}")
     profile_path(bf, s[512], dev, "funnel", shares, quiet=True)
     prof = {path: profile_path(bf, s[p["n"]], dev, path, shares)
             for path, p in PATHS.items()}
@@ -760,19 +964,28 @@ def profile_main(dev):
             f"{v['lost_ms']:.3f} ms")
     log(json.dumps(dict(card=card, setup=setup, stars_per_s=rates,
                         funnel_big_stars=n_big, funnel_big_stars_per_s=big,
-                        k1_moving_shares=shares, profiles=prof)))
+                        path_shares=shares, mc_code=code, profiles=prof)))
     return 0
 
 
-# The K1 and K2 instances of the main paths (F=8, windows of 512, the
-# dense kernel's star group): registers and local memory per thread.
-INSTANCES = ("screen", "fit", "fit_dense")
+# The kernel instances of the main paths (K1 and K2 at F=8, windows of
+# 512, the dense kernel's star group; K3; K4 with every prior on):
+# registers and local memory per thread.
+INSTANCES = ("screen", "fit", "fit_dense", "gather", "mc_rng", "mc_fed")
 
 
 def kernel_attrs(name, F):
+    """Registers and local bytes per thread of a kernel instance: K1 and
+    K2 at F filters, K3, and K4 in each mode with every prior on (the
+    main path's instances)."""
     from brutus_tpu_torch.ops import _native
     if name == "screen":
         r = _native.attributes("bk_screen_attrs", F)
+    elif name == "gather":
+        r = _native.attributes("bk_gather_attrs")
+    elif name.startswith("mc_"):
+        r = _native.attributes("bk_mc_attrs", int(name == "mc_rng"), 1, 1,
+                               1, 1)
     else:
         r = _native.attributes("bk_fit_attrs", F, 512,
                                int(name == "fit_dense"))
@@ -827,7 +1040,8 @@ def main():
             a = kernel_attrs(name, F)
             if F == 8:
                 attrs[name] = a
-            log(f"  {name} at F={F}: {a['registers']} registers, "
+            at = f" at F={F}" if name in ("screen", "fit", "fit_dense") else ""
+            log(f"  {name}{at}: {a['registers']} registers, "
                 f"{a['local_bytes']} bytes of local memory per thread")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

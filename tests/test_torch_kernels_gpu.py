@@ -197,19 +197,29 @@ def test_screen_kernel_matches_plain(cuda, F, sblock):
     assert dev["ok"], dev
 
 
-def _mc_problem(cuda):
-    """K4's inputs from the select stage of 8 funnel-fit stars."""
-    p = _problem(4096, 8, 8, 21, cuda)
+_MC_PROBLEMS = {}
+
+
+def _mc_problem(cuda, B=8):
+    """K4's inputs from the select stage of B funnel-fit stars (made once
+    per B)."""
+    if B not in _MC_PROBLEMS:
+        _MC_PROBLEMS[B] = _make_mc_problem(cuda, B)
+    return _MC_PROBLEMS[B]
+
+
+def _make_mc_problem(cuda, B):
+    p = _problem(4096, 8, B, 21, cuda)
     tabs, cfg = p["tabs"], FitConfig()
     res = TF.loglike_grid_screened(
         p["flux"], p["err"], p["mask"], tabs.table, tabs.maskrow,
         tabs.n_real, tabs.aux_names, parallax=p["plx"],
         parallax_err=p["plxe"], cfg=cfg, screen_k=1024, screen_block=256)
     pcfg = PosteriorConfig(n_sel_max=512, prefilter_k=512)
-    coord = torch.tensor([[204.7, -19.2]] * 8, device=cuda)
+    coord = torch.tensor([[204.7, -19.2]] * B, device=cuda)
     ladder = torch.linspace(0.05, 10.0, 120, device=cuda)
-    prof = (ladder, torch.linspace(0.0, 1.5, 120, device=cuda).expand(8, 120),
-            torch.full((8, 120), 0.2, device=cuda))
+    prof = (ladder, torch.linspace(0.0, 1.5, 120, device=cuda).expand(B, 120),
+            torch.full((B, 120), 0.2, device=cuda))
     sel = TP._select_stage(res["pack"], res["names"], res["ndim"], coord,
                            p["plx"], p["plxe"], prof, pcfg,
                            GalPriorConfig(), DustPriorConfig(), True)
@@ -268,4 +278,36 @@ def test_mc_kernel_rng_matches_plain(cuda):
     z = rng.normals(seeds, K, 50, TMC.nmc_pad_of(50))
     flags = TMC.tile_flags(args[2] > 0.5, 512)
     q = TMC.mc_integrate_plain(*args, z, flags, 50, 512, *cf)
+    _assert_mc_close(k, q, args[2], pd)
+
+
+# K4's compiled instances per mode: (use_gal, use_feh, use_loga, use_dust)
+# with every combination under the Galactic prior and, without it (where
+# the feh and age flags select nothing), with and without dust.
+MC_FLAGS = [(g, f, a, d) for g in (1, 0) for f in ((1, 0) if g else (1,))
+            for a in ((1, 0) if g else (1,)) for d in (1, 0)]
+
+
+@pytest.mark.parametrize("flags", MC_FLAGS,
+                         ids=["gal%d-feh%d-loga%d-dust%d" % f
+                              for f in MC_FLAGS])
+@pytest.mark.parametrize("mode", ["fed", "rng"])
+def test_mc_kernel_instances_match_plain(cuda, mode, flags):
+    """K4 at the funnel's 128 stars with the path's skip tile of 512 and
+    n_mc=50 (6 padding draw rows), in every compiled instance (mode x
+    prior flags), against its plain version to the limits of
+    `_assert_mc_close`."""
+    use_gal, use_feh, use_loga, use_dust = (bool(x) for x in flags)
+    args, pd, cf = _mc_problem(cuda, 128)
+    cf = cf[:3] + (use_feh, use_loga, use_dust, use_gal)
+    K = args[0].shape[2]
+    pcfg = dataclasses.replace(cf[0], kernel_rng=mode == "rng")
+    noise = TP.draw_noise(5, torch.arange(128), K, pcfg, cuda)
+    before = TMC.KERNELS["mc_" + mode].launches
+    k = TMC.mc_integrate(*args, noise.z, 50, 512, *cf, seeds=noise.seeds)
+    assert TMC.KERNELS["mc_" + mode].launches == before + 1
+    z = noise.z if mode == "fed" else rng.normals(noise.seeds, K, 50,
+                                                   TMC.nmc_pad_of(50))
+    flags_t = TMC.tile_flags(args[2] > 0.5, 512)
+    q = TMC.mc_integrate_plain(*args, z, flags_t, 50, 512, *cf)
     _assert_mc_close(k, q, args[2], pd)

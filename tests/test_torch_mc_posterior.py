@@ -74,11 +74,13 @@ def _assert_mc_close(out, ref, pd):
         assert close[~pd].mean() >= 0.95, (name, close[~pd].mean())
 
 
-def test_mc_kernel_matches(fit):
+@pytest.mark.parametrize("tile", [256, 32])
+def test_mc_kernel_matches(fit, tile):
     """K4 with shared normals against the JAX kernel in interpret mode,
-    on the 512 best-fitting models of each star; one dead tile and one
+    on the 512 best-fitting models of each star, at the skip tile of
+    the JAX default (256) and at one warp (32); one dead tile and one
     star with no valid model exercise the tile skip."""
-    K, nmc, nmcp, tile = 512, 20, 24, 256
+    K, nmc, nmcp = 512, 20, 24
     rng = np.random.default_rng(21)
     full = np.asarray(fit["res"]["pack_rows"])[:, :len(fit["names"])]
     best = np.argsort(-full[:, 0], axis=1, kind="stable")[:, :K]
@@ -220,3 +222,23 @@ def test_lnpost_batch_matches(fit, variant):
         np.testing.assert_allclose(out[k].numpy().astype(float),
                                    np.asarray(ref[k], float), rtol=1e-4,
                                    atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("tile", [32, 512])
+def test_tile_flags(tile):
+    """K4's skip flags: a model tile is active where it holds a valid
+    model, or everywhere for a star without one (its chi2-fallback
+    resampling reads every model), as `pallas_mc.mc_integrate` sets
+    them; checked on a best-first selection culled to a ragged valid
+    prefix, a star without valid models and scattered culls."""
+    K = 2048
+    rng = np.random.default_rng(3)
+    valid = np.zeros((4, K), bool)
+    valid[0, :45] = True                     # ragged valid prefix
+    valid[2] = rng.uniform(size=K) > 0.9     # scattered
+    valid[3, K - 1] = True                   # only the last model
+    flags = TMC.tile_flags(torch.as_tensor(valid), tile)
+    assert flags.dtype == torch.int32 and flags.shape == (4, K // tile)
+    want = valid.reshape(4, K // tile, tile).any(-1)
+    want[1] = True                           # star 1 has no valid model
+    np.testing.assert_array_equal(flags.numpy(), want.astype(np.int32))
