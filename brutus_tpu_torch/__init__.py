@@ -13,11 +13,15 @@ It imports torch, numpy and scipy only (h5py where a file is read or
 written) and nothing from `brutus_tpu`.  Entry points run on CUDA unless
 the caller passes `device="cpu"`.
 
-Ported so far: `BruteForce.fit` on both fused engines, the funnel
-(screen -> block top-k -> slab gather -> shortlist fit -> select stage
--> MC integration -> resampling) and the dense engine (fit of every
-grid model -> `lnpost_grid`), with custom prior callables.  See
-ROADMAP.md for what is still to come.
+Ported so far: `BruteForce.fit` on one device, with all four engines:
+the funnel (screen -> block top-k -> slab gather -> shortlist fit ->
+select stage -> MC integration -> resampling), the dense engine (fit of
+every grid model -> `lnpost_grid`), and the reference-semantics funnel
+and dense engine (`engine="xla"`: the reference's convergence loops,
+`ops/optimize.py`, `ops/screen_xla.py`); custom prior callables,
+`lnprior_ext`, `scan_batches`, `resume`, `return_sel`, the `_fit`
+generator; and the foundations (`utils`, `priors`, `dustmap`, `io`).
+See ROADMAP.md for what is still to come (the device mesh first).
 """
 
 __version__ = "0.1.0"

@@ -22,10 +22,30 @@ class FitConfig:
     rv_gauss: tuple = (3.32, 0.18)     # Schlafly et al. (2016)
     av_reg: float = 0.05               # MLE re-expansion (fitting.py:433)
     rv_reg: float = 0.1
+    # Convergence of the reference-semantics engine (fitting.py:583):
+    # flux-phase log-likelihood tolerance, the subset it is judged on.
+    ltol: float = 3e-2
+    ltol_subthresh: float = 1e-2
     init_thresh: float = 5e-3          # post-mag-fit freeze threshold
+    apply_init_cull: bool = True       # the reference's init cull on/off
     dim_prior: bool = True             # chi2 logpdf with Ndim-3 dof
     scale_min: float = 1e-20           # flux-scale clamp (fitting.py:517)
+    # Caps on the reference-semantics engine's convergence loops (the
+    # reference iterates without bound).
+    max_iter_mag: int = 100
+    max_iter_flux: int = 100
     stepsize_rescale: float = 1.2      # fitting.py:779
+    # Magnitude-phase seeds of that engine (fitting.py:700-703); None
+    # means the prior means.
+    av_init: float = None
+    rv_init: float = None
+    # Flux-space polish of only the best `polish_k` models by their
+    # magnitude-phase likelihood (0: every model).
+    polish_k: int = 0
+    # Seed that engine's magnitude phase with one direct 3x3 weighted
+    # least-squares solve; the fit kernel always does.  `fit` turns it
+    # on; the bare default keeps the reference trajectory.
+    mag_direct_init: bool = False
     big_var: float = 1e30              # unusable-magnitude variance flag
     # Fixed, unrolled iteration budgets of the fit kernel (K1).
     kernel_mag_iters: int = 6
@@ -34,6 +54,19 @@ class FitConfig:
     # as `screen_k // screen_block` contiguous blocks.  0 = no funnel.
     screen_k: int = 12288
     screen_block: int = 256
+
+    @property
+    def mtol(self):
+        """Magnitude-phase tolerance, `2.5 * ltol` (fitting.py:732)."""
+        return 2.5 * self.ltol
+
+    @property
+    def av0(self):
+        return self.av_gauss[0] if self.av_init is None else self.av_init
+
+    @property
+    def rv0(self):
+        return self.rv_gauss[0] if self.rv_init is None else self.rv_init
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,9 @@ grid.
   coefficients of `ops.fit.prepare_coeffs` and the `(Mp,)` grid rows
   `lnprior`, `feh`, `loga`, padded as `brutus_tpu.BruteForce.fit` pads
   them (`fitting.py:843-859`).
+- The dense reference engine's tables (`reference_tables`): the
+  `(M, F, 3)` coefficients and `(M,)` grid rows, unpadded, in the
+  grid's dtype.
 """
 
 import dataclasses
@@ -114,7 +117,8 @@ def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
 class DenseTables:
     """The dense engine's device tables (see module docstring)."""
 
-    coeffs: torch.Tensor         # (3, F, Mp) float32
+    coeffs: torch.Tensor         # (3, F, Mp) float32; the reference
+    #                              engine's: (M, F, 3) in the grid dtype
     lnprior: torch.Tensor        # (Mp,), -1e30 on the padding
     feh: torch.Tensor            # (Mp,), 0 on the padding, or None
     loga: torch.Tensor           # (Mp,), 9 on the padding, or None
@@ -139,5 +143,24 @@ def dense_tables(models, models_labels, labels_mask=None, device=None,
                        rows.get("loga"), M)
 
 
-__all__ = ["from_numpy_grid", "dense_tables", "default_grid_lnprior",
-           "GridTables", "DenseTables"]
+def reference_tables(models, models_labels, labels_mask=None, device=None,
+                     lnprior=None, apply_dlabels=True):
+    """The dense reference engine's tables: the `(M, F, 3)` coefficients
+    as given, unpadded and in their dtype (`optimize.loglike_grid`
+    reads them as they are), and the grid rows in the same dtype
+    (`brutus_tpu.BruteForce.fit`, fitting.py:959-964)."""
+    dev = resolve_device(device)
+    mc = np.asarray(models)
+    dt = mc.dtype if mc.dtype in (np.float32, np.float64) else np.float64
+    if lnprior is None:
+        lnprior = default_grid_lnprior(models_labels, labels_mask)
+    row = lambda v: torch.from_numpy(np.asarray(v, dt)).to(dev)
+    names = models_labels.dtype.names
+    lab = lambda k: (row(models_labels[k]) if apply_dlabels and k in names
+                     else None)
+    return DenseTables(torch.from_numpy(np.asarray(mc, dt)).to(dev),
+                       row(lnprior), lab("feh"), lab("loga"), len(mc))
+
+
+__all__ = ["from_numpy_grid", "dense_tables", "reference_tables",
+           "default_grid_lnprior", "GridTables", "DenseTables"]

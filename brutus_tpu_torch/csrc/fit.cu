@@ -473,8 +473,9 @@ fit_kernel(const float* __restrict__ star, const float* __restrict__ coef,
       const int p = w0 + j;
       float chi2 = v[0];
       const int gi = gidx ? gidx[(size_t)b * a.P + p] : p;
-      const float gidx_f = (float)gi;
-      const bool bad = a.n_real_mask >= 0 && gidx_f >= (float)a.n_real_mask;
+      // integers compared as integers: past 2**24 a float32 rounds a
+      // real model just below n_real up to it
+      const bool bad = a.n_real_mask >= 0 && gi >= a.n_real_mask;
       if (bad) chi2 = 1e30f;
       float lnl_out = -0.5f * chi2;
       if (bad) lnl_out = -1e30f;
@@ -494,7 +495,7 @@ fit_kernel(const float* __restrict__ star, const float* __restrict__ coef,
       const float* caux = coef + (size_t)b * a.st.coef_b + p;
       for (int i = 0; i < a.n_aux; ++i)
         o[(size_t)(11 + i) * R] = caux[(size_t)(3 * F + i) * a.st.coef_row];
-      o[(size_t)(11 + a.n_aux) * R] = gidx_f;
+      o[(size_t)(11 + a.n_aux) * R] = (float)gi;
       for (int r = 12 + a.n_aux; r < a.n_rows; ++r) o[(size_t)r * R] = 0.f;
     };
     const auto load_state = [&](int j) {

@@ -137,4 +137,23 @@ def uniform_profile(av_dist, av_mean, av_std, n=256):
     return dist_u, mean_u, std_u
 
 
-__all__ = ["DustMap", "Bayestar", "uniform_profile"]
+def write_bayestar_file(path, pixel_nside, pixel_index, dists,
+                        av_mean, av_std):
+    """Write a Bayestar-schema dust map file (mirrors
+    `dustmap.write_bayestar_file`): `pixel_info` (nside, healpix_index),
+    `dists` float64, `av_mean` / `av_std` float32."""
+    import h5py
+    ptype = np.dtype([("nside", "<i8"), ("healpix_index", "<i8")])
+    pinfo = np.empty(len(pixel_nside), dtype=ptype)
+    pinfo["nside"] = pixel_nside
+    pinfo["healpix_index"] = pixel_index
+    with h5py.File(path, "w") as f:
+        f.create_dataset("pixel_info", data=pinfo)
+        f.create_dataset("dists", data=np.asarray(dists, dtype=np.float64))
+        f.create_dataset("av_mean", data=np.asarray(av_mean,
+                                                    dtype=np.float32))
+        f.create_dataset("av_std", data=np.asarray(av_std, dtype=np.float32))
+
+
+__all__ = ["DustMap", "Bayestar", "uniform_profile",
+           "write_bayestar_file"]

@@ -2,25 +2,45 @@
 Batch brute-force fitter of the PyTorch port (mirrors
 `brutus_tpu/fitting.py`; reference `brutus/fitting.py:1110-2065`).
 
-Two engines, resolved as the JAX package's fused engine resolves them
-(`fitting.py:756-761`):
+Four engines, resolved from `engine` and `screen_k` as the JAX package
+resolves them on one device (`fitting.py:749-972`):
 
-- the funnel, when `screen_k` is below the grid size: per batch of
-  stars, one Python step runs the screen (K2), the block top-k, the
-  slab gather (K3), the shortlist fit (K1, stacked mode), the select
-  stage, the MC integration (K4) and the resampling (`_funnel_step`);
-- the dense engine, when `screen_k` is 0 or at least the grid size:
-  K1 in dense mode fits every grid model for every star, and
-  `lnpost_grid` selects, integrates and resamples (`_dense_step`).
+- `engine="fused"` (the default) with `screen_k` below the grid size:
+  the funnel.  Per batch of stars, one Python step runs the screen
+  (K2), the block top-k, the slab gather (K3), the shortlist fit (K1,
+  stacked mode), the select stage, the MC integration (K4) and the
+  resampling (`_funnel_step`);
+- `engine="fused"` with `screen_k` 0 or at least the grid size: the
+  dense engine, K1 in dense mode over every grid model, then
+  `lnpost_grid` (`_dense_step`);
+- `engine="xla"` with `screen_k` below the grid size: the
+  reference-semantics funnel, K2 and K3 as in the funnel, then the
+  convergence loops of `ops.optimize.loglike_grid` on the shortlists
+  and `lnpost_grid` (`_xla_funnel_step`, `ops/screen_xla.py`);
+- `engine="xla"` otherwise: the dense reference engine,
+  `ops.optimize.loglike_grid` over the whole grid in its dtype, then
+  `lnpost_grid` (`_xla_dense_step`).
 
-Custom prior callables take `lnpost_grid` on both engines, since K4
-hard-codes the built-in priors.  Host work (data hygiene, dust-map
+The JAX package picks `"xla"` when `engine` is None off the TPU; the
+port picks `"fused"` on every device, its kernels being its accelerator
+path.  Custom prior callables take `lnpost_grid` on every engine, since
+K4 hard-codes the built-in priors.  `ltol`, `ltol_subthresh` and
+`mag_direct_init` steer the reference-semantics engines only: the fit
+kernel runs fixed budgets from its direct seed, as in the JAX package.
+
+Batches stream: each batch's (or, with `scan_batches=N`, each group of
+N batches') outputs are packed into one float32 and one int32 matrix on
+the device, copied into pinned host buffers without blocking, and
+turned into numpy only after the next group has been launched, so the
+card computes while the host writes.  Host work (data hygiene, dust-map
 lookup, HDF5 output) stays in numpy.  Float32 matrix products run in
-true float32: the screen's sums need it (bf16-level noise scrambled the
-shortlist on the TPU, `pallas_loglike.py:467-472`), so the fit turns
-TF32 off.
+true float32 while a group is launched: the screen's sums need it
+(bf16-level noise scrambled the shortlist on the TPU,
+`pallas_loglike.py:467-472`), and the reference engine's sums too
+(the JAX package traces them at "highest" precision).
 """
 
+import math
 import sys
 import time
 import warnings
@@ -30,15 +50,21 @@ import torch
 
 from .config import (FitConfig, PosteriorConfig, GalPriorConfig,
                      DustPriorConfig)
-from .convert import from_numpy_grid, dense_tables, default_grid_lnprior
+from .convert import (from_numpy_grid, dense_tables, reference_tables,
+                      default_grid_lnprior)
 from .dustmap import Bayestar, uniform_profile
 from .io import ResultsWriter
 from .ops.fit import loglike_grid_fused
 from .ops.funnel import loglike_grid_screened
 from .ops.mc import NL_PAD
+from .ops.optimize import highest_precision, loglike_grid
 from .ops.posterior import (lnpost_batch, lnpost_grid, draw_noise,
                             selection_size)
+from .ops.screen_xla import loglike_grid_screened_xla
 from .utils import magnitude, resolve_device
+
+# Diagnostics of the selection, fetched only with `return_sel`.
+SEL_KEYS = ("sel_idx", "lnp_sel", "valid_sel")
 
 
 def _not_ported(what, item):
@@ -49,16 +75,22 @@ def _not_ported(what, item):
 
 def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                  dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                 apply_av_prior, tile, lngalprior=None, lndustprior=None):
+                 apply_av_prior, tile, lngalprior=None, lndustprior=None,
+                 ext_at=None):
     """One batch through the funnel: likelihood, then posterior (K4, or
     `lnpost_grid` on the shortlists for custom prior callables, as
-    `posterior.py:806-843` routes them)."""
+    `posterior.py:806-843` routes them).  `ext_at(gidx)` gives the
+    external label prior at the shortlists' grid indices, added to a
+    copy of the pack's lnlike row (`fitting.py:165-173`)."""
     res = loglike_grid_screened(
         flux, err, mask, tables.table, tables.maskrow, tables.n_real,
         tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
         tile=tile, screen_k=fit_cfg.screen_k,
         screen_block=fit_cfg.screen_block)
-    pack, names = res["pack"], res["names"]
+    pack, names, gidx = res["pack"], res["names"], res["global_idx"]
+    if ext_at is not None:
+        pack = pack.clone()
+        pack[:, names.index("lnlike")] += ext_at(gidx)
     P = pack.shape[2]
     custom = lngalprior is not None or lndustprior is not None
     noise = draw_noise(seed, rows, selection_size(post_cfg, P), post_cfg,
@@ -67,7 +99,8 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
               cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
               apply_av_prior=apply_av_prior)
     if not custom:
-        return lnpost_batch(pack, names, res["ndim"], coord, noise, **kw)
+        return lnpost_batch(pack, names, res["ndim"], coord, noise,
+                            global_idx=gidx, **kw)
     row = {n: pack[:, i] for i, n in enumerate(names)}
     results = dict(lnlike=row["lnlike"], chi2=row["chi2"],
                    scale=row["scale"], av=row["av"], rv=row["rv"],
@@ -76,18 +109,22 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                    ndim=res["ndim"])
     return lnpost_grid(results, row["lnprior"], coord, noise,
                        feh=row.get("feh"), loga=row.get("loga"),
-                       global_idx=torch.round(row["gidx"]).to(torch.int64),
-                       lngalprior=lngalprior, lndustprior=lndustprior, **kw)
+                       global_idx=gidx, lngalprior=lngalprior,
+                       lndustprior=lndustprior, **kw)
 
 
 def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                 dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                apply_av_prior, tile, lngalprior=None, lndustprior=None):
+                apply_av_prior, tile, lngalprior=None, lndustprior=None,
+                ext_at=None):
     """One batch through the dense engine (`brutus_tpu.BruteForce.
     _build_step`, engine "fused" without the funnel): K1 over the whole
-    grid, then `lnpost_grid`."""
+    grid, then `lnpost_grid`; the external prior is added over the
+    padded grid, zero on the padding (`fitting.py:857-860`)."""
     res = loglike_grid_fused(flux, err, mask, tables.coeffs, cfg=fit_cfg,
                              tile=tile, n_real=tables.n_real)
+    if ext_at is not None:
+        res["lnlike"] = res["lnlike"] + ext_at(None)
     M = res["lnlike"].shape[1]
     noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        tables.coeffs.device, grid=True)
@@ -99,20 +136,210 @@ def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                        lngalprior=lngalprior, lndustprior=lndustprior)
 
 
+def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
+                     coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
+                     dust_cfg, apply_av_prior, tile, lngalprior=None,
+                     lndustprior=None, ext_at=None):
+    """One batch through the reference-semantics funnel
+    (`brutus_tpu.fitting._screened_step_xla`): K2, K3, the convergence
+    loops on the shortlists, then `lnpost_grid` on them."""
+    res = loglike_grid_screened_xla(
+        flux, err, mask, tables.table, tables.maskrow, tables.n_real,
+        tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
+        tile=tile, screen_k=fit_cfg.screen_k,
+        screen_block=fit_cfg.screen_block)
+    gidx, aux = res.pop("global_idx"), res.pop("aux")
+    if ext_at is not None:
+        res["lnlike"] = res["lnlike"] + ext_at(gidx)
+    M = res["lnlike"].shape[1]
+    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
+                       res["lnlike"].device, grid=True)
+    return lnpost_grid(res, aux["lnprior"], coord, noise, parallax=plx,
+                       parallax_err=plx_err, feh=aux.get("feh"),
+                       loga=aux.get("loga"), dust_profile=dust_profile,
+                       global_idx=gidx, cfg=post_cfg, gal_cfg=gal_cfg,
+                       dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
+                       lngalprior=lngalprior, lndustprior=lndustprior)
+
+
+def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
+                    coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
+                    dust_cfg, apply_av_prior, tile, lngalprior=None,
+                    lndustprior=None, ext_at=None):
+    """One batch through the dense reference engine (`brutus_tpu.
+    BruteForce._build_step`, engine "xla"): `loglike_grid` over the
+    whole grid in its dtype, then `lnpost_grid`."""
+    res = loglike_grid(flux, err, mask, tables.coeffs, parallax=plx,
+                       parallax_err=plx_err, cfg=fit_cfg)
+    res.pop("n_iter")
+    if ext_at is not None:
+        res["lnlike"] = res["lnlike"] + ext_at(None).to(
+            res["lnlike"].dtype)
+    M = res["lnlike"].shape[1]
+    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
+                       tables.coeffs.device, grid=True)
+    return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
+                       parallax_err=plx_err, feh=tables.feh,
+                       loga=tables.loga, dust_profile=dust_profile,
+                       cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
+                       apply_av_prior=apply_av_prior,
+                       lngalprior=lngalprior, lndustprior=lndustprior)
+
+
+class _ExternalPrior:
+    """The `lnprior_ext` Gaussian label priors (`fitting.py:717-740`),
+    built per batch on the device from each star's `(mean, std)` per
+    label: `at(lo, hi, cols)` is the `(hi - lo, n)` float32 log-prior of
+    stars `lo..hi` at the grid models `cols` ((B, n) indices, or None
+    for every column of a grid of `n_cols`, zero beyond the real
+    models).  A star whose mean is not finite or whose std is not
+    positive gets none."""
+
+    def __init__(self, lnprior_ext, models_labels, n_cols, device):
+        names = models_labels.dtype.names
+        for k in lnprior_ext:
+            if k not in names:
+                raise ValueError(f"`lnprior_ext` key {k!r} does not match "
+                                 "any model label")
+        f64 = dict(dtype=torch.float64, device=device)
+        self.terms = []
+        for k, pars in lnprior_ext.items():
+            pars = np.asarray(pars, dtype=float)
+            self.terms.append((
+                torch.as_tensor(np.asarray(models_labels[k], float), **f64),
+                torch.as_tensor(pars[:, 0], **f64),
+                torch.as_tensor(pars[:, 1], **f64)))
+        self.n_cols = n_cols
+        self.device = device
+
+    def at(self, lo, hi, cols):
+        total = None
+        for lab, mean, std in self.terms:
+            m, s = mean[lo:hi, None], std[lo:hi, None]
+            ok = torch.isfinite(m) & (s > 0)
+            safe = torch.where(ok, s, torch.ones_like(s))
+            if cols is None:
+                M = lab.shape[0]
+                x = torch.zeros(self.n_cols, dtype=lab.dtype,
+                                device=lab.device)
+                x[:M] = lab
+                x = x[None]
+                ok = ok & (torch.arange(self.n_cols, device=lab.device)
+                           < M)
+            else:
+                # padding models of the last slab lie past the grid:
+                # clamped, as the JAX package's gather clamps (they are
+                # killed by their lnlike)
+                x = lab[cols.long().clamp(max=lab.shape[0] - 1)]
+            chi2 = (x - torch.where(ok, m, torch.zeros_like(m))) ** 2
+            term = torch.where(ok, -0.5 * (chi2 / safe ** 2 + torch.log(
+                2 * math.pi * safe ** 2)), torch.zeros_like(chi2))
+            # accumulated in float32, term by term, as the JAX package's
+            # float32 table is
+            total = (term if total is None else total.double() + term).to(
+                torch.float32)
+        return total
+
+
+def _pack_outputs(out, skip):
+    """A step's outputs as one float32 and one int32 `(B, X)` matrix on
+    the device, and the recipe that splits them on the host (mirrors
+    `fitting._pack_outputs`)."""
+    groups = {"f": [], "i": []}
+    layout = []
+    B = next(iter(out.values())).shape[0]
+    for k in sorted(out):
+        if k in skip:
+            continue
+        v = out[k]
+        kind = "f" if v.is_floating_point() else "i"
+        shape = tuple(v.shape[1:])
+        layout.append((k, kind, shape, int(np.prod(shape)) if shape else 1,
+                       torch.empty(0, dtype=v.dtype).numpy().dtype))
+        groups[kind].append(v.reshape(B, -1).to(
+            torch.float32 if kind == "f" else torch.int32))
+    return ([torch.cat(groups[kind], 1) if groups[kind] else None
+             for kind in ("f", "i")], layout)
+
+
+def _unpack_outputs(fpack, ipack, layout):
+    """Split the host copies of `_pack_outputs`' matrices back into the
+    named arrays, each a copy of its own (mirrors
+    `fitting._unpack_outputs`)."""
+    pos = {"f": 0, "i": 0}
+    buf = {"f": fpack, "i": ipack}
+    out = {}
+    for k, kind, shape, n, dtype in layout:
+        b = buf[kind]
+        v = b[:, pos[kind]:pos[kind] + n].reshape((b.shape[0],) + shape)
+        pos[kind] += n
+        out[k] = np.array(v, dtype=dtype)
+    return out
+
+
+class _Fetcher:
+    """Device -> host copies of packed outputs that overlap the next
+    group's work (the JAX package's `copy_to_host_async`,
+    `fitting.py:1043-1050`): on CUDA each matrix is copied with `non_blocking=True`
+    into one of two sets of pinned buffers, alternating, and a CUDA
+    event marks the copy's end; `result` waits for that event only.  A
+    set is reused two groups later, after its result was taken.  On the
+    CPU the copy is the matrix itself."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.sets = [{}, {}]
+        self.turn = 0
+
+    def start(self, packs):
+        if not self.cuda:
+            return [None if p is None else p.numpy() for p in packs], None
+        bufs = self.sets[self.turn]
+        self.turn ^= 1
+        host = []
+        for i, p in enumerate(packs):
+            if p is None:
+                host.append(None)
+                continue
+            b = bufs.get(i)
+            if b is None or b.shape[1] != p.shape[1] \
+                    or b.shape[0] < p.shape[0]:
+                b = bufs[i] = torch.empty(p.shape, dtype=p.dtype,
+                                          pin_memory=True)
+            b = b[:p.shape[0]]
+            b.copy_(p, non_blocking=True)
+            host.append(b)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def result(host, event):
+        if event is not None:
+            event.synchronize()
+        return [None if h is None else np.asarray(h) for h in host]
+
+
 class BruteForce:
     """Grid-scan fitter over `(Nmodel, Nfilt, 3)` magnitude coefficients
-    (reference `brutus/fitting.py:1110-1142`).
+    (reference `brutus/fitting.py:1110-1142`; mirrors
+    `brutus_tpu.BruteForce`).
 
-    `device` is where the grid and every stage live: CUDA unless the
-    caller passes another (the CPU runs the kernels' plain versions).
+    `dtype` casts the grid (`fitting.py:420-421`): the dense reference
+    engine runs in it, the kernels' engines in float32.  `device` is
+    where the grid and every stage live: CUDA unless the caller passes
+    another (the CPU runs the kernels' plain versions).
     """
 
     def __init__(self, models, models_labels, labels_mask=None,
-                 device=None):
+                 dtype=None, device=None):
         self.NMODEL, self.NDIM, self.NCOEF = np.shape(models)
         self.models = np.asarray(models)
+        if dtype is not None:
+            self.models = self.models.astype(dtype, copy=False)
         self.models_labels = models_labels
         self.labels_mask = labels_mask
+        self.NLABELS = len(models_labels.dtype.names)
         self.device = resolve_device(device)
 
     def _setup(self, data, data_err, data_mask, phot_offsets=None,
@@ -173,43 +400,38 @@ class BruteForce:
             dustfile=None, dustmap=None, dust_cfg=None, apply_dlabels=True,
             data_coords=None, logl_dim_prior=True, ltol=3e-2,
             ltol_subthresh=1e-2, logl_initthresh=5e-3, mag_max=50.0,
-            merr_max=0.25, save_dar_draws=True, verbose=True,
-            batch_size=16, n_sel_max=2048, seed=0, resume=False,
-            return_results=False, mesh=None, engine=None, tile=512,
-            screen_k=None, screen_block=None, screen_select=None,
-            mag_direct_init=True, scan_batches=1):
+            merr_max=0.25, save_dar_draws=True, running_io=True,
+            verbose=True, batch_size=16, n_sel_max=2048, seed=0,
+            resume=False, return_results=False, return_sel=False,
+            mesh=None, engine=None, tile=512, screen_k=None,
+            screen_block=None, screen_select=None, mag_direct_init=True,
+            scan_batches=1, _yield_batches=False):
         """Fit every star against the grid and write the results file.
 
         Same arguments, defaults and output schema as
-        `brutus_tpu.BruteForce.fit` on its fused engine: the funnel
-        when `screen_k` is below the grid size, else the dense engine.
-        Custom `lngalprior` / `lndustprior` callables follow the JAX
-        package's per-star contract on torch tensors (see
-        `ops.posterior.lnpost_grid`).  Each star draws from its own
-        Philox stream keyed by `seed` and its row in `data`
-        (`ops/rng.py`), so a row's results do not depend on
-        `batch_size`; the funnel's MC kernel makes those normals itself
-        unless `PosteriorConfig.kernel_rng` is off, when they are drawn
-        outside and fed to it.  `screen_select="approx"`
-        selects exactly.  Results stream batch by batch into
-        `save_file`; `return_results=True` also returns them as a dict
-        of numpy arrays.
+        `brutus_tpu.BruteForce.fit` on one device (module docstring for
+        the engines).  Custom `lngalprior` / `lndustprior` callables
+        follow the JAX package's per-star contract on torch tensors (see
+        `ops.posterior.lnpost_grid`).  `lnprior_ext` maps model labels
+        to per-star `(n_data, 2)` Gaussian `(mean, std)` priors added to
+        the likelihood.  Each star draws from its own Philox stream
+        keyed by `seed` and its row in `data` (`ops/rng.py`), so a row's
+        results depend neither on `batch_size` nor on `scan_batches`,
+        which groups N batches of the funnel engines into one launch
+        sequence and one copy back (the dense engines run batch by
+        batch).  `resume=True` continues a partial `save_file` from its
+        first unwritten row.  `return_results=True` also returns the
+        results as a dict of numpy arrays, with the selection's
+        diagnostics `sel_idx`, `lnp_sel`, `valid_sel` when
+        `return_sel=True`.  `running_io` is accepted for the reference's
+        signature; results always stream batch by batch.
+        `screen_select="approx"` selects exactly.
         """
-        if engine not in (None, "fused"):
-            raise _not_ported(f"engine={engine!r}", 7)
         if mesh is not None:
-            raise _not_ported("a device mesh", 8)
-        if scan_batches != 1:
-            raise _not_ported("scan_batches > 1", 5)
-        if lnprior_ext is not None:
-            raise _not_ported("lnprior_ext", 5)
-        if resume:
-            raise _not_ported("resume", 5)
-        # The XLA engine's convergence loop and magnitude-space start;
-        # the fit kernel runs fixed budgets from the direct seed.
-        if (ltol, ltol_subthresh, mag_direct_init) != (3e-2, 1e-2, True):
-            raise _not_ported("ltol, ltol_subthresh and mag_direct_init="
-                              "False (the XLA engine)", 7)
+            raise _not_ported("a device mesh", 5)
+        if engine not in (None, "fused", "xla"):
+            raise ValueError(f"engine={engine!r}: expected 'fused' or "
+                             "'xla'")
         if screen_select not in (None, "exact", "approx"):
             raise ValueError(f"screen_select={screen_select!r}: expected "
                              "'exact' or 'approx'")
@@ -226,99 +448,178 @@ class BruteForce:
         fit_cfg = FitConfig(
             avlim=tuple(avlim),
             av_gauss=(0.0, 1e6) if av_gauss is None else tuple(av_gauss),
-            rvlim=tuple(rvlim), rv_gauss=tuple(rv_gauss),
-            init_thresh=logl_initthresh, dim_prior=logl_dim_prior,
+            rvlim=tuple(rvlim), rv_gauss=tuple(rv_gauss), ltol=ltol,
+            ltol_subthresh=ltol_subthresh, init_thresh=logl_initthresh,
+            dim_prior=logl_dim_prior,
             screen_k=(FitConfig.screen_k if screen_k is None
                       else int(screen_k)),
             screen_block=(FitConfig.screen_block if screen_block is None
-                          else int(screen_block)))
-        use_screen = bool(fit_cfg.screen_k) and \
-            fit_cfg.screen_k < self.NMODEL
+                          else int(screen_block)),
+            mag_direct_init=bool(mag_direct_init))
         post_cfg = PosteriorConfig(n_mc_prior=Nmc_prior,
                                    wt_thresh=wt_thresh,
                                    cdf_thresh=cdf_thresh, n_draws=Ndraws,
                                    avlim=tuple(avlim), rvlim=tuple(rvlim),
                                    n_sel_max=min(n_sel_max, self.NMODEL))
-        if self.NMODEL >= 2 ** 24:
-            raise ValueError("the fit kernel carries grid indices as "
-                             "float32, exact only below 2**24 models")
         gal_cfg = lngalprior_cfg or GalPriorConfig()
         dust_cfg = dust_cfg or DustPriorConfig()
         dev = self.device
-        f32 = dict(dtype=torch.float32, device=dev)
+        f32 = torch.float32
 
         if dustmap is None and dustfile is not None:
             dustmap = Bayestar(dustfile)
         apply_av_prior = (dustmap is not None) and (av_gauss is None)
-        dust_profile = None
+        dust_dist = dust_mean = dust_std = None
         if apply_av_prior:
             dd, dm, ds = dustmap.query((data_coords[:, 0],
                                         data_coords[:, 1]))
-            dd, dm, ds = uniform_profile(dd, np.atleast_2d(dm),
-                                         np.atleast_2d(ds), n=NL_PAD)
-            dust_profile = (torch.as_tensor(dd, **f32),
-                            torch.as_tensor(dm, **f32),
-                            torch.as_tensor(ds, **f32))
+            dd, dust_mean, dust_std = uniform_profile(
+                dd, np.atleast_2d(dm), np.atleast_2d(ds), n=NL_PAD)
+            dust_dist = torch.as_tensor(dd, dtype=f32, device=dev)
 
-        build, step = ((from_numpy_grid, _funnel_step) if use_screen
-                       else (dense_tables, _dense_step))
+        use_screen = bool(fit_cfg.screen_k) and \
+            fit_cfg.screen_k < self.NMODEL
+        engine = engine or "fused"
+        build, step = {
+            ("fused", True): (from_numpy_grid, _funnel_step),
+            ("fused", False): (dense_tables, _dense_step),
+            ("xla", True): (from_numpy_grid, _xla_funnel_step),
+            ("xla", False): (reference_tables, _xla_dense_step),
+        }[engine, use_screen]
+        kw = {} if build is reference_tables else dict(tile=tile)
         tables = build(self.models, self.models_labels, self.labels_mask,
                        device=dev, lnprior=lnprior,
-                       apply_dlabels=apply_dlabels, tile=tile)
+                       apply_dlabels=apply_dlabels, **kw)
+        ext = None
+        if lnprior_ext is not None:
+            n_cols = (tables.coeffs.shape[-1] if step is _dense_step
+                      else self.NMODEL)
+            ext = _ExternalPrior(lnprior_ext, self.models_labels, n_cols,
+                                 dev)
+        # The dense reference engine reads the data in the grid's dtype.
+        data_dt = (tables.coeffs.dtype if step is _xla_dense_step
+                   else f32)
+        # Funnel engines group `scan_batches` batches per launch sequence
+        # and copy-back (`fitting.py:984-990`).
+        n_scan = (max(1, int(scan_batches))
+                  if step in (_funnel_step, _xla_funnel_step) else 1)
+        chunk = batch_size * n_scan
+        skip = () if return_sel else SEL_KEYS
+
         writer = None
         if save_file is not None:
             writer = ResultsWriter(save_file, n_data, Ndraws,
                                    labels=data_labels,
-                                   save_dar_draws=save_dar_draws)
-        prev_tf32 = (torch.backends.cuda.matmul.allow_tf32,
-                     torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+                                   save_dar_draws=save_dar_draws,
+                                   resume=resume)
+        start_row = writer.cursor if (writer is not None and resume) else 0
+        fetcher = _Fetcher(dev)
+
+        def launch(lo, hi):
+            """Upload and launch the batches of rows lo..hi (float32
+            products at full precision); start the copy back of their
+            packed outputs."""
+            with highest_precision():
+                return _launch(lo, hi)
+
+        def _launch(lo, hi):
+            # pageable uploads: pinning each small input per call cost
+            # more than it overlapped (PERF.md, the streaming loop)
+            up = lambda x, dt=f32: torch.as_tensor(x[lo:hi], dtype=dt,
+                                                   device=dev)
+            g = dict(flux=up(data, data_dt), err=up(data_err, data_dt),
+                     mask=up(data_mask, torch.bool), plx=up(parallax),
+                     plxe=up(parallax_err), coord=up(data_coords))
+            if apply_av_prior:
+                g["dm"], g["ds"] = up(dust_mean), up(dust_std)
+            packs = []
+            for blo in range(lo, hi, batch_size):
+                bhi = min(blo + batch_size, hi)
+                b = slice(blo - lo, bhi - lo)
+                dp = ((dust_dist, g["dm"][b], g["ds"][b])
+                      if apply_av_prior else None)
+                ext_at = (None if ext is None else
+                          (lambda cols, a=blo, z=bhi: ext.at(a, z, cols)))
+                out = step(tables, seed, torch.arange(blo, bhi, device=dev),
+                           g["flux"][b], g["err"][b], g["mask"][b],
+                           g["plx"][b], g["plxe"][b], g["coord"][b], dp,
+                           fit_cfg, post_cfg, gal_cfg, dust_cfg,
+                           apply_av_prior, tile, lngalprior, lndustprior,
+                           ext_at=ext_at)
+                packs.append(_pack_outputs(out, skip))
+            layout = packs[0][1]
+            mats = [None if packs[0][0][i] is None
+                    else torch.cat([p[0][i] for p in packs])
+                    for i in range(2)]
+            return (lo, hi - lo, layout) + fetcher.start(mats)
+
+        def finish(item):
+            lo, n, layout, host, event = item
+            fpack, ipack = fetcher.result(host, event)
+            return lo, n, _unpack_outputs(fpack, ipack, layout)
+
+        def batches():
+            """`(lo, n, out)` per group, one group in flight: group i+1
+            is launched before group i is read back."""
+            pending = None
+            for lo in range(start_row, n_data, chunk):
+                item = launch(lo, min(lo + chunk, n_data))
+                if pending is not None:
+                    yield finish(pending)
+                pending = item
+            if pending is not None:
+                yield finish(pending)
+
+        if _yield_batches:
+            if writer is not None:      # the caller writes what it takes
+                writer.close()
+            return batches()
+
         collected = [] if return_results else None
         t_start = time.time()
+        n_done = 0
         try:
-            for lo in range(0, n_data, batch_size):
-                sl = slice(lo, min(lo + batch_size, n_data))
-                n = sl.stop - lo
-                dp = None
-                if dust_profile is not None:
-                    dp = (dust_profile[0], dust_profile[1][sl],
-                          dust_profile[2][sl])
-                out = step(
-                    tables, seed, torch.arange(lo, sl.stop, device=dev),
-                    torch.as_tensor(data[sl], **f32),
-                    torch.as_tensor(data_err[sl], **f32),
-                    torch.as_tensor(data_mask[sl], device=dev),
-                    torch.as_tensor(parallax[sl], **f32),
-                    torch.as_tensor(parallax_err[sl], **f32),
-                    torch.as_tensor(data_coords[sl], **f32), dp, fit_cfg,
-                    post_cfg, gal_cfg, dust_cfg, apply_av_prior, tile,
-                    lngalprior, lndustprior)
-                out = {k: v.cpu().numpy() for k, v in out.items()}
+            for lo, n, out in batches():
                 if writer is not None:
                     writer.write_batch(lo, out, n_valid=n)
                 if collected is not None:
                     collected.append(out)
+                n_done += n
                 if verbose:
-                    done = sl.stop
-                    rate = (time.time() - t_start) / done
+                    rate = (time.time() - t_start) / max(n_done, 1)
+                    remain = rate * (n_data - start_row - n_done)
                     sys.stderr.write(
-                        f"\rFitting object {done}/{n_data} "
+                        f"\rFitting object {start_row + n_done}/{n_data} "
                         f"[chi2/n: {out['chi2min'][n - 1]:.1f}/"
                         f"{out['ndim'][n - 1]}] "
                         f"(mean time: {rate:.3f} s/obj, est. remaining: "
-                        f"{rate * (n_data - done):.1f} s)   ")
+                        f"{remain:.1f} s)   ")
                     sys.stderr.flush()
         finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = prev_tf32
             if writer is not None:
                 writer.close()
         if verbose:
             sys.stderr.write("\n")
-        if collected is not None:
+        if collected is not None and collected:
             return {k: np.concatenate([c[k] for c in collected])
                     for k in collected[0]}
+
+    def _fit(self, data, data_err, data_mask, **kwargs):
+        """Per-star generator (mirrors `brutus_tpu.BruteForce._fit`;
+        reference `brutus/fitting.py:1803-2065`) yielding the
+        reference's 13-tuple per star.  Lazy: batches are fitted as the
+        generator is consumed, one group in flight."""
+        kwargs.setdefault("save_file", None)
+        kwargs.setdefault("verbose", False)
+        kwargs.pop("return_results", None)
+        for _lo, n, out in self.fit(data, data_err, data_mask,
+                                    _yield_batches=True, **kwargs):
+            for i in range(n):
+                yield (out["model_idx"][i], out["scale"][i], out["av"][i],
+                       out["rv"][i], out["cov_sar"][i], out["ndim"][i],
+                       out["lnprob"][i], out["log_evidence"][i],
+                       out["chi2min"][i], out["dist"][i], out["red"][i],
+                       out["dred"][i], out["logwt"][i])
 
 
 __all__ = ["BruteForce", "default_grid_lnprior"]

@@ -407,9 +407,8 @@ def fit_pack_plain(star, coef, gidx, srow, n_aux, n_rows, n_real_mask,
 
     # epilogue (`_post` in-kernel): padding mask, Gaussian constant,
     # chi2 dimensionality prior
-    gidx_f = gidx.to(torch.float32)
     if n_real_mask >= 0:
-        bad = gidx_f >= float(n_real_mask)
+        bad = gidx >= n_real_mask       # as integers, exact past 2**24
         chi2 = torch.where(bad, torch.full_like(chi2, 1e30), chi2)
     lnl = -0.5 * chi2
     if n_real_mask >= 0:
@@ -421,7 +420,7 @@ def fit_pack_plain(star, coef, gidx, srow, n_aux, n_rows, n_real_mask,
         lnl = torch.where(chi2 > 0, ans, torch.full_like(ans, -math.inf))
     rows = [lnl, chi2, scale, av, rv, s_den, a_den, r_den, sa, sr, ar]
     rows += [coef[3 * F + i] for i in range(n_aux)]
-    rows.append(gidx_f)
+    rows.append(gidx.to(torch.float32))
     rows += [torch.zeros_like(chi2)] * (n_rows - len(rows))
     return torch.stack(rows, dim=1)
 
@@ -471,7 +470,9 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     are kept, K3 gathers them and K1 fits them.
 
     Returns a dict: `pack` (B, n_rows, P) stacked fit output, `names`
-    its row names (`pack_row_names`), `ndim` (B,) usable bands.
+    its row names (`pack_row_names`), `ndim` (B,) usable bands, and
+    `global_idx` the (B, P) int32 grid index of each shortlist model
+    (the pack's float32 `gidx` row is exact only below 2**24).
     """
     B, F = flux.shape
     dev = table.device
@@ -504,7 +505,8 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     pack = fit_pack(star4, coef, idx.contiguous(),
                     post_consts(mask, ndim, tot_var), n_aux, n_rows,
                     n_real if n_real < Mp else -1, tile2, cfg)
-    return dict(pack=pack, names=pack_row_names(aux_names), ndim=ndim)
+    return dict(pack=pack, names=pack_row_names(aux_names), ndim=ndim,
+                global_idx=idx)
 
 
 __all__ = ["loglike_grid_screened", "screen_blocks", "gather_slabs",

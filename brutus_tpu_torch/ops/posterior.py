@@ -258,12 +258,16 @@ def _chi2_bookkeeping(chi2_k, scale_k, valid, ndim, parallax, parallax_err):
 
 
 def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
-                  dust_profile, cfg, gal_cfg, dust_cfg, apply_av_prior):
+                  dust_profile, cfg, gal_cfg, dust_cfg, apply_av_prior,
+                  global_idx=None):
     """Culls + priors + top-K selection of every star on the fit
     kernel's stacked pack (mirrors `posterior._select_stage`, the
     kernel-pack path and the path without a prefilter): the prefilter
     gathers whole pack columns, so the selected table feeds K4 as it
-    is.  pack : (B, n_rows, M)."""
+    is.  pack : (B, n_rows, M).  The selected models' grid indices come
+    from the integer `global_idx (B, M)` when it is given (exact at any
+    grid size, `posterior.py:434`), else from the pack's float32 `gidx`
+    row (exact below 2**24 models)."""
     col = {n: i for i, n in enumerate(names)}
     B, _, M = pack.shape
     plx, plxe = parallax[:, None], parallax_err[:, None]
@@ -277,6 +281,8 @@ def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
         packed = torch.gather(pack, 2, pre_idx[:, None, :].expand(
             B, pack.shape[1], pre_idx.shape[1]))
         lnprob = lnprob_of(packed)
+        if global_idx is not None:
+            global_idx = torch.gather(global_idx, 1, pre_idx)
     else:
         packed = pack
     g = lambda n: packed[:, col[n]] if n in col else None
@@ -289,7 +295,11 @@ def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
     t = lambda n: table[:, col[n]]
     chi2_k, ndim_out, chi2min = _chi2_bookkeeping(
         t("chi2"), t("scale"), valid, ndim, parallax, parallax_err)
-    sel_gidx = torch.round(t("gidx")).to(torch.int32)
+    if global_idx is not None:
+        sel_gidx = (global_idx if sel is None
+                    else torch.gather(global_idx, 1, sel)).to(torch.int32)
+    else:
+        sel_gidx = torch.round(t("gidx")).to(torch.int32)
     return dict(table=table.contiguous(), lnp_sel=lnp_sel, valid=valid,
                 scale_k=t("scale"), av_k=t("av"), rv_k=t("rv"),
                 chi2_k=chi2_k, ndim=ndim_out, chi2min=chi2min,
@@ -411,7 +421,7 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
                  cfg: PosteriorConfig = PosteriorConfig(),
                  gal_cfg: GalPriorConfig = GalPriorConfig(),
                  dust_cfg: DustPriorConfig = DustPriorConfig(),
-                 apply_av_prior=True, tile=512):
+                 apply_av_prior=True, tile=512, global_idx=None):
     """Posterior weights and `(dist, Av, Rv)` draws for a batch of stars
     (mirrors `posterior.lnpost_batch` with the built-in priors).
 
@@ -420,11 +430,16 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
     apply those mixtures); ndim : (B,); coord : (B, 2) galactic degrees;
     dust_profile : `(av_dist (Nd,), av_mean (B, Nd), av_std (B, Nd))`
     on a uniform ladder of at most 128 rungs; noise : `z` (fed normals)
-    or `seeds` (normals made inside K4), with `u` and `gumbel`.
+    or `seeds` (normals made inside K4), with `u` and `gumbel`;
+    global_idx : the funnel's (B, M) int32 grid indices, read for the
+    selected models (without it, the pack's float32 `gidx` row).
 
     Returns per-draw `(B, n_draws)` fields `model_idx, scale, av, rv,
     lnprob, dist, red, dred, logwt` and `cov_sar (B, n_draws, 3, 3)`,
-    and per-star `log_evidence, chi2min, ndim`.
+    per-star `log_evidence, chi2min, ndim`, and the selection's
+    diagnostics `(B, K)`: `sel_idx` its grid indices, `lnp_sel` its
+    log-posteriors, `valid_sel` its valid models (`posterior.py:
+    567-575`).
     """
     B = pack.shape[0]
     parallax, parallax_err, coord = _star_args(B, pack.device, parallax,
@@ -432,7 +447,7 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
     use_dust = dust_profile is not None and apply_av_prior
     sel = _select_stage(pack, names, ndim, coord, parallax, parallax_err,
                         dust_profile, cfg, gal_cfg, dust_cfg,
-                        apply_av_prior)
+                        apply_av_prior, global_idx)
     scal, dust = _star_scalars(coord, parallax, parallax_err, dust_profile,
                                use_dust)
     nmc = cfg.n_mc_prior
@@ -466,7 +481,8 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
         rv=take(sel["rv_k"]), cov_sar=cov_sar, lnprob=take(lnp_sel),
         dist=pick(dist_k), red=pick(red_k), dred=pick(dred_k),
         logwt=torch.gather(lr, 2, imc)[..., 0],
-        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"])
+        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"],
+        sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel, valid_sel=valid)
 
 
 def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
@@ -496,7 +512,8 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
     `lndustprior(dist, av, av_dist, av_mean, av_std)`; they are applied
     over the star axis with `torch.func.vmap`.
 
-    Returns the fields of `lnpost_batch`.
+    Returns the fields of `lnpost_batch` (its `sel_idx` through
+    `global_idx` when given).
     """
     B = results["lnlike"].shape[0]
     parallax, parallax_err, coord = _star_args(
@@ -557,7 +574,8 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
         av=take(av_k), rv=take(rv_k), cov_sar=cov_sar,
         lnprob=take(lnp_sel), dist=pick(dist_mc), red=pick(a_mc),
         dred=pick(r_mc), logwt=torch.gather(lr, 2, imc)[..., 0],
-        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"])
+        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"],
+        sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel, valid_sel=valid)
 
 
 __all__ = ["lnpost_batch", "lnpost_grid", "draw_noise", "selection_size",

@@ -16,7 +16,7 @@ import torch
 
 from .config import GalPriorConfig, DustPriorConfig
 from .coords import galactic_to_cylindrical
-from .utils import truncnorm_logpdf
+from .utils import _interp, truncnorm_logpdf
 
 
 def imf_lnprior(mgrid, alpha_low=1.3, alpha_high=2.3, mass_break=0.5,
@@ -77,6 +77,22 @@ def parallax_lnprior(parallaxes, p_meas, p_err):
     lnorm = torch.log(2.0 * math.pi * err ** 2)
     return torch.where(have, -0.5 * (chi2 + lnorm),
                        torch.zeros_like(parallaxes))
+
+
+def parallax_to_scale(p_meas, p_err, snr_lim=4.0):
+    """Gaussian approximation of the parallax in scale space `s = p**2`,
+    `s_mean = p^2 + sig^2`, `s_std = sqrt(2 sig^4 + 4 p^2 sig^2)`, above
+    the SNR gate `snr_lim` (mirrors `priors.parallax_to_scale`;
+    reference `brutus/pdf.py:225-260`); 1e-20 and 1e20 below it."""
+    ok = torch.isfinite(p_meas) & torch.isfinite(p_err) & \
+        (p_meas / p_err > snr_lim)
+    pm = torch.clamp(p_meas, min=0.0)
+    s_mean = torch.where(ok, pm ** 2 + p_err ** 2,
+                         torch.full_like(pm, 1e-20))
+    s_std = torch.where(ok, torch.sqrt(2 * p_err ** 4
+                                       + 4 * pm ** 2 * p_err ** 2),
+                        torch.full_like(pm, 1e20))
+    return s_mean, s_std
 
 
 def scale_parallax_lnprior(scales, scale_errs, p_meas, p_err,
@@ -239,8 +255,28 @@ def dust_lnprior(dists, avs, av_dist, av_mean, av_std,
                        torch.zeros_like(avs))
 
 
+def dust_lnprior_interp(dists, avs, av_dist, av_mean, av_std,
+                        cfg: DustPriorConfig = DustPriorConfig()):
+    """`dust_lnprior` on any ascending distance ladder, by `np.interp`'s
+    piecewise-linear interpolation (mirrors `priors.dust_lnprior_interp`).
+    av_dist, av_mean, av_std : (Ndist,)."""
+    covered = torch.all(torch.isfinite(av_mean) & torch.isfinite(av_std))
+    safe_mean = torch.where(torch.isfinite(av_mean), av_mean,
+                            torch.zeros_like(av_mean))
+    safe_std = torch.where(torch.isfinite(av_std), av_std,
+                           torch.ones_like(av_std))
+    mean_d = cfg.scale * _interp(dists, av_dist, safe_mean) + cfg.offset
+    err_d = cfg.smooth * cfg.scale * _interp(dists, av_dist, safe_std)
+    err_d = torch.sqrt(err_d ** 2 + cfg.scatter ** 2)
+    chi2 = (avs - mean_d) ** 2 / err_d ** 2
+    lnorm = torch.log(2.0 * math.pi * err_d ** 2)
+    return torch.where(covered, -0.5 * (chi2 + lnorm),
+                       torch.zeros_like(avs))
+
+
 __all__ = [
     "imf_lnprior", "ps1_MrLF_lnprior", "parallax_lnprior",
-    "scale_parallax_lnprior", "logn_disk", "logn_halo", "logp_feh",
-    "logp_age_from_feh", "gal_lnprior", "dust_lnprior",
+    "parallax_to_scale", "scale_parallax_lnprior", "logn_disk",
+    "logn_halo", "logp_feh", "logp_age_from_feh", "gal_lnprior",
+    "dust_lnprior", "dust_lnprior_interp",
 ]

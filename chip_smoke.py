@@ -2,8 +2,9 @@
 """Smoke run of `brutus_tpu_torch` on one NVIDIA H100.
 
     python3 chip_smoke.py               # the card run (needs one CUDA card)
-    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-7 on the CPU
+    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-10 on the CPU
     python3 chip_smoke.py --profile     # where each fit path's time goes
+    python3 chip_smoke.py --rates 2     # warm stars/s of the fused paths
 
 Phases, each printing one line with its elapsed seconds:
 
@@ -33,26 +34,53 @@ Phases, each printing one line with its elapsed seconds:
 6. the dense path: `BruteForce.fit(screen_k=0)` on the same grid (K1
    in dense mode over all 750,080 padded models, then `lnpost_grid`),
    256 stars in batches of 16, timed as stars/s;
-7. a `kernels` JSON line: each kernel's launches during the path that
-   runs it (phase 4, 5 or 6; each must be > 0) and its phase-3
-   deviation and times; the registers and local bytes per thread of
-   each (K4: of the main path's instance), for K1 the share of pairs
-   moving in the polish, for K4 its time and bound at 16 stars.
+8. the reference-semantics funnel: `BruteForce.fit(engine="xla")`
+   (K2, K3, then the convergence loops of `ops.optimize` on the
+   shortlists and `lnpost_grid`), 128 stars in one batch, K2 and K3
+   launched; the dense reference engine (`screen_k=0`) on the first 16
+   in batches of 8; the funnel's likelihoods held against the
+   reference engine in float64 on the host on each star's own
+   shortlist, the dense engine against itself in float64 on the card
+   (a TF32-rounded control must miss each limit), and the funnel
+   compared (as a report) with the dense engine;
+9. the rest of `BruteForce` on the funnel, phase 4's stars: a per-star
+   `lnprior_ext` on feh with `scan_batches=2` and `return_sel=True`,
+   held against the same fit batch by batch (identical rows) and
+   against phase 4 (the drawn feh moves toward the truth), and the
+   `_fit` generator's first batch of tuples against those rows
+   (`resume` writes HDF5 and is tested on the CPU only);
+10. the fallback past 2**24 models: a float32 grid of 2**24 + 4096
+   models, 64 stars planted past 2**24, one funnel batch: odd drawn
+   indices there (float32 holds only even ones) show the integer
+   grid-index path, and every drawn model lies in its star's shortlist;
+7. last, a `kernels` JSON line: each kernel's launches during the path
+   that runs it (phase 4, 5 or 6; each must be > 0) and on every phase
+   that launched it, and its phase-3 deviation and times; the
+   registers and local bytes per thread of each (K4: of the main
+   path's instance), for K1 the share of pairs moving in the polish,
+   for K4 its time and bound at 16 stars.
 
-Any failure exits non-zero.  The last line of a card run is the device
+Each fit phase prints its stars/s and median distance bias.  Any
+failure exits non-zero.  The last line of a card run is the device
 record `{"ok": true, "device": {...}}`.
 
 `--profile` runs none of these phases.  On the card, at the same grid
 and fit settings, it prints the host set-up each `fit` call repeats,
 warm fits timed in turns (funnel / funnel with fed normals / funnel
-with fed normals / funnel at 512 stars, dense twice at 256, then the
-funnel at 4096), per path a `torch.profiler` trace of one warm fit
+with fed normals / funnel at 512 stars, dense twice at 256, the
+reference-semantics funnel at 128 stars and its dense engine at 16,
+twice each, then the funnel at 4096), per path a `torch.profiler` trace
+of one warm fit
 (device time by kernel, busy time, idle share), and each hand-written
 kernel's launches x (ms - bound) on the path that runs it (K1's bound
 from the share of pairs moving on the path's first batch, K4's from its
 valid and active columns per launch), the order
 in which kernel redesigns would win the most time back; the last line
-is one JSON object with these numbers.  The script imports nothing of
+is one JSON object with these numbers.  `--rates N` times warm fits of
+the funnel, the funnel with fed normals and the dense engine in turns,
+N rounds forwards and backwards, and lists the host operations of one
+funnel fit; a copy of the script in an older checkout times that
+checkout the same way.  The script imports nothing of
 JAX nor of the JAX package; its grid generator is its own copy of the
 correlated lattice the repository's JAX benchmark uses.
 """
@@ -114,11 +142,12 @@ def correlated_grid(n_model, n_filt, seed=2):
     return mc, labels
 
 
-def stars(mc, n_star, seed=7):
-    """Observations of random grid models at 0.3-3 kpc, with Av that
-    follows the smoke dust map, 60-sigma photometry and 10% parallaxes."""
+def stars(mc, n_star, seed=7, lo=0):
+    """Observations of random grid models (of index `lo` or more) at
+    0.3-3 kpc, with Av that follows the smoke dust map, 60-sigma
+    photometry and 10% parallaxes."""
     rng = np.random.default_rng(seed)
-    idx = rng.integers(0, mc.shape[0], n_star)
+    idx = rng.integers(lo, mc.shape[0], n_star)
     dist = rng.uniform(0.3, 3.0, n_star)
     av = np.clip(0.15 * dist + rng.normal(size=n_star) * 0.1, 0.01, None)
     rv = rng.uniform(2.8, 3.8, n_star)
@@ -658,21 +687,31 @@ def phase_mc(sel, names, scal, dust, pcfg, nb, clock, dev):
     return out
 
 
-def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True):
+def fit_kwargs(s, batch, screen_k, n_sel_max, **extra):
+    """The `BruteForce.fit` keywords of every smoke fit of the stars `s`
+    (`extra` adds or replaces some)."""
+    return dict(dict(parallax=s["plx"], parallax_err=s["plxe"],
+                     data_coords=s["coords"], dustmap=smoke_dustmap(),
+                     batch_size=batch, screen_k=screen_k, screen_block=256,
+                     n_sel_max=n_sel_max, Nmc_prior=50, Ndraws=250,
+                     tile=512, save_file=None, verbose=False), **extra)
+
+
+def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True,
+              **extra):
     """One `BruteForce.fit` of the stars `s`: the funnel (`screen_k`
-    below the grid size) or the dense engine (`screen_k=0`).
-    `kernel_rng=False` switches the funnel's MC kernel to fed normals
-    through `PosteriorConfig`, as the JAX package's drive recipe
-    switches its own flags.  Returns the results, the seconds to the
-    final synchronise, and the launch counts of this fit alone."""
+    below the grid size) or the dense engine (`screen_k=0`), of the
+    fused engine or, with `engine="xla"` in `extra`, of the
+    reference-semantics one.  `kernel_rng=False` switches the funnel's
+    MC kernel to fed normals through `PosteriorConfig`, as the JAX
+    package's drive recipe switches its own flags.  Returns the
+    results, the seconds to the final synchronise, and the launch
+    counts of this fit alone."""
     import functools
     from brutus_tpu_torch import fitting
     from brutus_tpu_torch.ops import _native
-    kw = dict(parallax=s["plx"], parallax_err=s["plxe"],
-              data_coords=s["coords"], dustmap=smoke_dustmap(),
-              batch_size=batch, screen_k=screen_k, screen_block=256,
-              n_sel_max=n_sel_max, Nmc_prior=50, Ndraws=250, tile=512,
-              save_file=None, verbose=False, return_results=True)
+    kw = fit_kwargs(s, batch, screen_k, n_sel_max, return_results=True,
+                    **extra)
     post_cfg = fitting.PosteriorConfig
     fitting.PosteriorConfig = functools.partial(post_cfg,
                                                 kernel_rng=kernel_rng)
@@ -691,14 +730,16 @@ def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True):
 
 
 def phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel_max,
-              kernel_rng=True):
-    """A cold `fit_stars` of `n_star` stars, checked: finite outputs of
-    the expected shapes and a median distance bias below 25%."""
+              kernel_rng=True, s=None, bf=None, **extra):
+    """A cold `fit_stars` of `n_star` stars (`stars(mc, n_star)` unless
+    `s` is given), checked: finite outputs of the expected shapes and a
+    median distance bias below 25%.  The results are returned under
+    `out`."""
     from brutus_tpu_torch import BruteForce
-    s = stars(mc, n_star)
-    out, dt, launches = fit_stars(BruteForce(mc, labels, device=dev), s,
-                                  dev, batch, screen_k, n_sel_max,
-                                  kernel_rng)
+    s = stars(mc, n_star) if s is None else s
+    bf = BruteForce(mc, labels, device=dev) if bf is None else bf
+    out, dt, launches = fit_stars(bf, s, dev, batch, screen_k, n_sel_max,
+                                  kernel_rng, **extra)
     for key, v in out.items():
         if v.dtype.kind == "f" and not np.isfinite(v).all():
             raise AssertionError(f"non-finite values in {key}")
@@ -714,7 +755,293 @@ def phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel_max,
                              f"bias {bias:+.3f}")
     return dict(seconds=dt, stars_per_s=n / dt, recall=recall,
                 dist_bias=bias, dist_p90=p90, launches=launches,
-                finite_evidence=float(np.isfinite(out["log_evidence"]).mean()))
+                finite_evidence=float(np.isfinite(out["log_evidence"]).mean()),
+                out=out)
+
+
+def _tensors(s, dev, sl=slice(None)):
+    """The stars `s[sl]` as the fit uploads them: float32 flux, errors,
+    parallaxes, and an all-true mask."""
+    t = lambda x: torch.as_tensor(np.asarray(x)[sl], dtype=torch.float32,
+                                  device=dev)
+    flux = t(s["flux"])
+    return (flux, t(s["err"]), torch.ones(flux.shape, dtype=torch.bool,
+                                          device=dev), t(s["plx"]),
+            t(s["plxe"]))
+
+
+# The reference-semantics funnel on the card held against the reference
+# engine in float64 on the host, on each star's own shortlist, and the
+# dense reference engine against itself in float64: at most a share
+# `XLA_SHARE_TOL` of the real models may have a field past `XLA_TOL`
+# (rtol, atol; the limits of `tests/test_screen_xla.py::
+# test_screened_xla_matches_dense`).  In float32 the convergence loops
+# stop at other iterations than in float64 on a few of the lattice's
+# models (nats apart at a star's best, so that distance is reported,
+# not held); the share sits between the card's sound readings and
+# those of a lower-precision control, the same engines in float32 on
+# coefficients rounded to TF32's 10-bit mantissa, which must miss it
+# (readings in PERF.md).
+XLA_TOL = dict(lnlike=(1e-4, 0.1), chi2=(2e-3, 2e-3), scale=(2e-3, 2e-3),
+               av=(2e-3, 2e-3), rv=(2e-3, 2e-3))
+XLA_SHARE_TOL = 0.05
+
+
+def _round_tf32(x):
+    """float32 values rounded to the nearest of TF32's 10-bit mantissa."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _field_deviation(fun, ref, real, acc):
+    """Fold into `acc` each field's largest |dev| over its `XLA_TOL`
+    limit and the count of values past it, and the largest |dev| of the
+    lnlike relative to the star's best over the models within 10 nats of
+    it (`near`), and the count of models with a field past its limit, on
+    the real models `real`; `ref` decides the scale."""
+    ref = {k: ref[k].to(fun[k]) for k in XLA_TOL}
+    off = torch.zeros_like(real)
+    for k, (rtol, atol) in XLA_TOL.items():
+        ratio = (fun[k] - ref[k]).abs() / (atol + rtol * ref[k].abs())
+        off |= ratio > 1
+        ratio = ratio[real]
+        acc["worst"][k] = max(acc["worst"][k], ratio.max().item())
+        acc["n_off"][k] += int((ratio > 1).sum().item())
+    acc["models_off"] += int((off & real).sum().item())
+    acc["models"] += int(real.sum().item())
+    ninf = lambda x: torch.where(real, x, torch.full_like(x, -math.inf))
+    lf, lr = ninf(fun["lnlike"]), ninf(ref["lnlike"])
+    top_f, top_r = lf.amax(1, keepdim=True), lr.amax(1, keepdim=True)
+    near = lr > top_r - 10.0
+    d = ((lf - top_f) - (lr - top_r)).abs()[near]
+    acc["near"] = max(acc["near"], d.max().item())
+
+
+def _deviation_acc():
+    return dict(worst=dict.fromkeys(XLA_TOL, 0.0),
+                n_off=dict.fromkeys(XLA_TOL, 0), near=0.0, models_off=0,
+                models=0)
+
+
+def _share_off(acc):
+    return acc["models_off"] / max(acc["models"], 1)
+
+
+def _acc_text(acc):
+    worst = {k: round(v, 4) for k, v in acc["worst"].items()}
+    return (f"worst {worst}, past the limit {acc['n_off']}, share of "
+            f"models with a field past it {_share_off(acc):.4g}, near the "
+            f"best {acc['near']:.4g} nats")
+
+
+def _within(acc):
+    return _share_off(acc) <= XLA_SHARE_TOL
+
+
+def xla_deviation(mc, labels, s, dev, n_check, batch, screen_k):
+    """The reference-semantics funnel (`loglike_grid_screened_xla`) on the
+    first `n_check` stars of `s`, in batches of `batch`.
+
+    `f64`, held (`XLA_SHARE_TOL`): against the reference engine
+    (`optimize.loglike_grid`) in float64 on the host, on each star's
+    shortlist taken from the host grid at the funnel's `global_idx`
+    (padding as the funnel pads), from the same float32 star data.
+    `control`, which must miss those limits: the same engine on the
+    device in float32 on those shortlists rounded to TF32
+    (`_round_tf32`), against the same reference.  `dense64`, held at
+    the same limits: the dense reference engine (float32, the grid's
+    dtype) against itself in float64 on the device over the whole grid;
+    `dense_control`, which must miss them: the float32 dense engine on
+    the TF32-rounded grid.
+
+    `dense`, reported: against the dense reference engine over the
+    whole grid on the device, every shortlisted model's fields, and
+    each star's best shortlisted lnlike against the dense maximum
+    (`best_gap` over the stars whose dense maximum is shortlisted,
+    `best_gap_all` over every star).  On this
+    near-degenerate lattice the reference engine's convergence tests
+    range over thousands of good models that a shortlist lacks, so the
+    funnel stops at other iterations than the dense engine and misses
+    the random-grid limits there, more than a nat at a star's best,
+    as the JAX package's own funnel does (`tests/
+    test_torch_screen_xla.py::test_lattice_funnel_matches_the_jax_funnel`).
+    """
+    from brutus_tpu_torch.config import FitConfig
+    from brutus_tpu_torch.convert import from_numpy_grid
+    from brutus_tpu_torch.ops.optimize import loglike_grid
+    from brutus_tpu_torch.ops.screen_xla import loglike_grid_screened_xla
+    cfg = FitConfig(mag_direct_init=True)        # as `fit` sets it
+    tabs = from_numpy_grid(mc, labels, device=dev)
+    coeffs = torch.as_tensor(mc, device=dev)
+    host = torch.as_tensor(mc, dtype=torch.float64)
+    M = mc.shape[0]
+    faint = host[M - 1].clone()
+    faint[:, 0] += 60.0
+    coeffs64 = coeffs.double()
+    f64, control, dense64, dense_control, dense = (
+        _deviation_acc() for _ in range(5))
+    gaps, gaps_all, on_list = [], [], 0
+    t_ref = 0.0
+    for lo in range(0, n_check, batch):
+        sl = slice(lo, min(lo + batch, n_check))
+        flux, err, mask, plx, plxe = _tensors(s, dev, sl)
+        fun = loglike_grid_screened_xla(
+            flux, err, mask, tabs.table, tabs.maskrow, tabs.n_real,
+            tabs.aux_names, parallax=plx, parallax_err=plxe, cfg=cfg,
+            tile=512, screen_k=screen_k, screen_block=256)
+        g = fun["global_idx"].long()
+        real = g < M
+        gc = g.clamp(max=M - 1)
+        short = torch.where(real.cpu()[..., None, None], host[gc.cpu()],
+                            faint)
+        h = lambda x: x.cpu().double()
+        t0 = time.time()
+        ref = loglike_grid(h(flux), h(err), mask.cpu(), short,
+                           parallax=h(plx), parallax_err=h(plxe), cfg=cfg)
+        t_ref += time.time() - t0
+        fun_h = {k: h(fun[k]) for k in XLA_TOL}
+        _field_deviation(fun_h, ref, real.cpu(), f64)
+        low = loglike_grid(flux, err, mask, _round_tf32(
+            short.to(dev, torch.float32)), parallax=plx, parallax_err=plxe,
+            cfg=cfg)
+        _field_deviation({k: h(low[k]) for k in XLA_TOL}, ref, real.cpu(),
+                         control)
+        full = loglike_grid(flux, err, mask, coeffs, parallax=plx,
+                            parallax_err=plxe, cfg=cfg)
+        d = lambda x: x.double()
+        full64 = loglike_grid(d(flux), d(err), mask, coeffs64,
+                              parallax=d(plx), parallax_err=d(plxe),
+                              cfg=cfg)
+        every = torch.ones_like(full["lnlike"], dtype=torch.bool)
+        _field_deviation(full, full64, every, dense64)
+        low = loglike_grid(flux, err, mask, _round_tf32(coeffs),
+                           parallax=plx, parallax_err=plxe, cfg=cfg)
+        _field_deviation(low, full64, every, dense_control)
+        del full64, low
+        _field_deviation(fun, {k: torch.gather(full[k], 1, gc)
+                               for k in XLA_TOL}, real, dense)
+        best_f = torch.where(real, fun["lnlike"],
+                             torch.full_like(fun["lnlike"], -math.inf))
+        gap = (full["lnlike"].amax(1) - best_f.amax(1)).abs()
+        hit = (g == full["lnlike"].argmax(1, keepdim=True)).any(1)
+        gaps += gap[hit].tolist()
+        gaps_all += gap.tolist()
+        on_list += int(hit.sum().item())
+        del fun, full
+    ok = (_within(f64) and not _within(control) and _within(dense64)
+          and not _within(dense_control))
+    return dict(f64=f64, control=control, dense64=dense64,
+                dense_control=dense_control, dense=dense,
+                best_gap=max(gaps, default=math.nan),
+                best_gap_all=max(gaps_all), on_list=on_list,
+                ref_seconds=t_ref, ok=ok)
+
+
+def phase_xla(mc, labels, dev, n_star, batch, screen_k, n_check,
+              batch_check):
+    """Phase 8: `BruteForce.fit(engine="xla")`, the reference-semantics
+    funnel (K2, K3, then the convergence loops of `ops.optimize` on the
+    shortlists and `lnpost_grid`), `n_star` stars in batches of
+    `batch`; the dense reference engine (`screen_k=0`) on the first
+    `n_check` stars; and the funnel's likelihoods held against the
+    float64 reference engine (`xla_deviation`)."""
+    from brutus_tpu_torch import BruteForce
+    s = stars(mc, n_star, seed=9)
+    bf = BruteForce(mc, labels, device=dev)
+    fun = phase_fit(mc, labels, dev, n_star, batch, screen_k, 2048, s=s,
+                    bf=bf, engine="xla")
+    if dev.type == "cuda" and not (fun["launches"]["screen"]
+                                   and fun["launches"]["gather"]):
+        raise AssertionError("the reference-semantics funnel launched no "
+                             "K2 or K3")
+    sub = {k: (v[:n_check] if np.ndim(v) else v) for k, v in s.items()}
+    dense = phase_fit(mc, labels, dev, n_check, batch_check, 0, 2048,
+                      s=sub, bf=bf, engine="xla")
+    return dict(funnel=fun, dense_fit=dense, **xla_deviation(
+        mc, labels, s, dev, n_check, batch_check, screen_k))
+
+
+def feh_offset(labels, out, s):
+    """The median over all draws of |feh(drawn model) - feh(true model)|."""
+    feh = np.asarray(labels["feh"])
+    return float(np.median(np.abs(feh[out["model_idx"]]
+                                  - feh[s["idx"]][:, None])))
+
+
+def phase_rest(mc, labels, dev, s, batch, screen_k, n_sel, base):
+    """Phase 9: the rest of `BruteForce` on the fused funnel for the stars
+    `s` (phase 4's): a per-star Gaussian `lnprior_ext` on feh (std 0.1
+    around each star's true model) with `scan_batches=2` and
+    `return_sel=True`, against the same fit with `scan_batches=1`
+    (identical rows: model indices equal, log-evidence and distances
+    within rtol 1e-5) and against phase 4's fit without the prior
+    (`base`: the drawn feh must move closer to the truth); then `_fit`'s
+    first `batch` tuples against that fit's rows."""
+    from brutus_tpu_torch import BruteForce
+    bf = BruteForce(mc, labels, device=dev)
+    n = len(s["idx"])
+    ext = {"feh": np.stack([np.asarray(labels["feh"])[s["idx"]],
+                            np.full(n, 0.1)], 1)}
+    kw = dict(lnprior_ext=ext, return_sel=True)
+    scan = phase_fit(mc, labels, dev, n, batch, screen_k, n_sel, s=s, bf=bf,
+                     scan_batches=2, **kw)
+    one = phase_fit(mc, labels, dev, n, batch, screen_k, n_sel, s=s, bf=bf,
+                    **kw)
+    a, b = scan["out"], one["out"]
+    same = bool(np.array_equal(a["model_idx"], b["model_idx"])) and all(
+        np.allclose(a[k], b[k], rtol=1e-5, atol=0) for k in
+        ("log_evidence", "dist"))
+    sel_ok = all(np.isin(a["model_idx"][i], a["sel_idx"][i]).all()
+                 for i in range(n))
+    gen = bf._fit(s["flux"], s["err"], np.ones(s["flux"].shape, bool),
+                  **fit_kwargs(s, batch, screen_k, n_sel, lnprior_ext=ext))
+    tup = [next(gen) for _ in range(batch)]
+    gen.close()
+    gen_ok = all(np.array_equal(t[0], b["model_idx"][i])
+                 and np.allclose(t[9], b["dist"][i], rtol=1e-5)
+                 for i, t in enumerate(tup))
+    return dict(scan=scan, one=one, same=same, sel_ok=sel_ok, gen_ok=gen_ok,
+                feh_ext=feh_offset(labels, a, s),
+                feh_base=feh_offset(labels, base, s),
+                ok=same and sel_ok and gen_ok)
+
+
+def phase_fallback(dev, tiny, screen_k, n_sel):
+    """Phase 10: a grid of 2**24 + 4096 models (float32 throughout,
+    `BruteForce(dtype=np.float32)`), 64 stars planted at models of index
+    2**24 or more, one batch of the fused funnel.  Past 2**24 float32
+    holds only even integers, so odd drawn indices there show that the
+    selected models' indices came from the funnel's integer map; each
+    star's drawn models must lie in its shortlist (`global_idx` of the
+    same screen).  `--tiny` runs the same path on a 4096-model grid
+    with the stars planted past 2048."""
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.config import FitConfig
+    from brutus_tpu_torch.convert import from_numpy_grid
+    from brutus_tpu_torch.ops.funnel import loglike_grid_screened
+    limit = 2048 if tiny else 2 ** 24
+    M = 2 * limit if tiny else limit + 4096
+    n = 8 if tiny else 64
+    t0 = time.time()
+    mc, labels = correlated_grid(M, 8)
+    grid_s = time.time() - t0
+    s = stars(mc, n, seed=13, lo=limit)
+    bf = BruteForce(mc, labels, dtype=np.float32, device=dev)
+    r = phase_fit(mc, labels, dev, n, n, screen_k, n_sel, s=s, bf=bf,
+                  return_sel=True)
+    midx = r["out"]["model_idx"]
+    above = (midx >= limit) & (midx < 2 * limit)
+    odd = int((above & (midx % 2 == 1)).sum())
+    tabs = from_numpy_grid(mc, labels, device=dev)
+    flux, err, mask, plx, plxe = _tensors(s, dev)
+    short = loglike_grid_screened(
+        flux, err, mask, tabs.table, tabs.maskrow, tabs.n_real,
+        tabs.aux_names, parallax=plx, parallax_err=plxe, cfg=FitConfig(),
+        tile=512, screen_k=screen_k,
+        screen_block=256)["global_idx"].cpu().numpy()
+    in_short = all(np.isin(midx[i], short[i]).all() for i in range(n))
+    return dict(r, M=M, limit=limit, grid_s=grid_s, above=int(above.sum()),
+                odd=odd, in_short=in_short, ok=odd > 0 and in_short)
 
 
 # --profile: the fit paths, their settings and the kernels each runs,
@@ -726,7 +1053,20 @@ PATHS = {
     "funnel": dict(batch=128, screen_k=12288, kernel_rng=True, n=512),
     "funnel_fed": dict(batch=128, screen_k=12288, kernel_rng=False, n=512),
     "dense": dict(batch=16, screen_k=0, kernel_rng=True, n=256),
+    # the reference-semantics engines (`engine="xla"`), at phase 8's
+    # sizes
+    "xla_funnel": dict(batch=128, screen_k=12288, kernel_rng=True, n=128,
+                       engine="xla"),
+    "xla_dense": dict(batch=8, screen_k=0, kernel_rng=True, n=16,
+                      engine="xla"),
 }
+
+
+def path_fit(bf, s, dev, path):
+    """`fit_stars` of the stars `s` with the settings of `PATHS[path]`."""
+    p = PATHS[path]
+    return fit_stars(bf, s, dev, p["batch"], p["screen_k"], 2048,
+                     p["kernel_rng"], engine=p.get("engine", "fused"))
 # K1's bounds take the share of pairs its freeze lets move on the path
 # (`path_moving_shares`), K4's its valid and active columns per launch
 # (`mc_columns`) and the card's clock.
@@ -743,6 +1083,10 @@ PATH_KERNELS = {
         128, 2048, 50, *sh["mc"], False, sh["clock"])),
     ("dense", "fit_kernel"): ("fit_dense", lambda sh: fit_dense_bound(
         16, 750_080, 8, sh["fit_dense"] * 16 * 750_080)),
+    ("xla_funnel", "screen_kernel"): ("screen_xla", lambda sh: screen_bound(
+        128, 750_080, 8, 256)),
+    ("xla_funnel", "gather_kernel"): ("gather_xla", lambda sh: gather_bound(
+        27, 128, 12288, 48)),
 }
 
 
@@ -864,13 +1208,11 @@ def profile_path(bf, s, dev, path, shares, quiet=False):
     """Device busy time, idle share, the top device events and the
     hand-written kernels' launches, ms and lost time of one warm fit of
     `path` under `torch.profiler`."""
-    p = PATHS[path]
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     t0 = time.time()
     with torch.profiler.profile(activities=act) as prof:
-        fit_stars(bf, s, dev, p["batch"], p["screen_k"], 2048,
-                  p["kernel_rng"])
+        path_fit(bf, s, dev, path)
     wall = time.time() - t0
     # Device-side events only (kernels and copies): the host operators
     # that launched them carry the same time again.
@@ -900,6 +1242,58 @@ def profile_path(bf, s, dev, path, shares, quiet=False):
                 kernels=kernels)
 
 
+def path_stars(mc):
+    """The stars of the paths' fits, by count."""
+    s = {n: stars(mc, n) for n in (256, 512)}
+    s.update({n: stars(mc, n, seed=9) for n in (16, 128)})
+    return s
+
+
+def warm_rates(bf, s, dev, order):
+    """Stars/s of warm fits of the paths in `order`, in that order, each
+    path warmed up once first."""
+    seconds = lambda path: path_fit(bf, s[PATHS[path]["n"]], dev, path)[1]
+    for path in dict.fromkeys(order):
+        seconds(path)
+    rates = {path: [] for path in dict.fromkeys(order)}
+    for path in order:
+        rates[path].append(PATHS[path]["n"] / seconds(path))
+    return rates
+
+
+def rates_main(dev, rounds):
+    """`--rates`: warm stars/s of the three fused paths in turns
+    (`rounds` times funnel / fed / dense, then the same backwards), and
+    the host operations of one warm funnel fit by their own CPU time.
+    Uses nothing that the fit of an earlier slice lacks, so a copy of
+    this script placed in an older checkout times that checkout's
+    package the same way."""
+    from brutus_tpu_torch import BruteForce
+    card = nvidia_smi()
+    log(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc, labels = correlated_grid(750_000, 8)
+    bf = BruteForce(mc, labels, device=dev)
+    s = path_stars(mc)
+    turn = ("funnel", "funnel_fed", "dense")
+    rates = warm_rates(bf, s, dev, (turn + turn[::-1]) * rounds)
+    log(f"warm fits, stars/s in turns: {rates}")
+    act = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=act) as prof:
+        path_fit(bf, s[PATHS["funnel"]["n"]], dev, "funnel")
+    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host = {e.key[:60]: dict(self_ms=e.self_cpu_time_total / 1e3,
+                             count=e.count) for e in ev[:25]}
+    log("host operations of one funnel fit of 512 stars, by own CPU time:")
+    for k, v in host.items():
+        log(f"  {v['self_ms']:9.3f} ms  x{v['count']:<6d} {k}")
+    log(json.dumps(dict(card=card, stars_per_s=rates,
+                        median={k: float(np.median(v))
+                                for k, v in rates.items()},
+                        funnel_host_ops=host)))
+    return 0
+
+
 def profile_main(dev):
     """`--profile`: where the time of each fit path goes (module
     docstring)."""
@@ -922,20 +1316,13 @@ def profile_main(dev):
     log(f"host set-up per fit call: {setup}")
 
     bf = BruteForce(mc, labels, device=dev)
-    s = {n: stars(mc, n) for n in (256, 512)}
-    seconds = lambda path, st: fit_stars(
-        bf, st, dev, PATHS[path]["batch"], PATHS[path]["screen_k"], 2048,
-        PATHS[path]["kernel_rng"])[1]
-    for path, p in PATHS.items():                   # warm-up
-        seconds(path, s[p["n"]])
-    rates = {path: [] for path in PATHS}
-    for path in ("funnel", "funnel_fed", "funnel_fed", "funnel", "dense",
-                 "dense"):
-        n = PATHS[path]["n"]
-        rates[path].append(n / seconds(path, s[n]))
+    s = path_stars(mc)
+    rates = warm_rates(bf, s, dev, (
+        "funnel", "funnel_fed", "funnel_fed", "funnel", "dense", "dense",
+        "xla_funnel", "xla_dense", "xla_dense", "xla_funnel"))
     log(f"warm fits, stars/s in turns: {rates}")
     n_big = 4096
-    big = n_big / seconds("funnel", stars(mc, n_big, seed=8))
+    big = n_big / path_fit(bf, stars(mc, n_big, seed=8), dev, "funnel")[1]
     log(f"funnel fit of {n_big} stars: {big:.1f} stars/s")
 
     # The profiler's first window carries its own start-up (seconds of
@@ -1005,10 +1392,13 @@ def main():
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse phases 4-7 on the CPU (plain versions)")
     ap.add_argument("--tiny", action="store_true",
-                    help="a 4096-model grid and 16 stars")
+                    help="a 4000-model grid (padded, as the full one) and 16 stars")
     ap.add_argument("--profile", action="store_true",
                     help="time and profile each fit path on the card "
                          "instead of the smoke phases")
+    ap.add_argument("--rates", type=int, default=0, metavar="ROUNDS",
+                    help="time warm fits of the three fused paths in turns "
+                         "on the card instead of the smoke phases")
     args = ap.parse_args()
     t_all = time.time()
     if args.cpu:
@@ -1021,6 +1411,8 @@ def main():
         dev = torch.device("cuda")
         if args.profile:
             return profile_main(dev)
+        if args.rates:
+            return rates_main(dev, args.rates)
     from brutus_tpu_torch.ops import _native
     card = None
     attrs = {}
@@ -1047,7 +1439,7 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    M = 4096 if args.tiny else 750_000
+    M = 4000 if args.tiny else 750_000
     mc, labels = correlated_grid(M, 8)
     log(f"grid: {M} models x 8 bands, correlated lattice  "
         f"[{time.time() - t0:.1f} s]")
@@ -1088,11 +1480,85 @@ def main():
         f"log-evidences {r['finite_evidence']:.3f}, launches "
         f"{r['launches']}  [{time.time() - t0:.1f} s]")
 
+    t0 = time.time()
+    n_x, batch_x, n_chk, batch_chk = ((16, 8, 8, 8) if args.tiny
+                                      else (128, 128, 16, 8))
+    x = phase_xla(mc, labels, dev, n_x, batch_x, screen_k, n_chk, batch_chk)
+    runs[8] = x["funnel"]
+    fr, dr = x["funnel"], x["dense_fit"]
+    log(f"phase 8 reference-semantics funnel: BruteForce.fit(engine="
+        f"\"xla\", screen_k={screen_k}), {M} models x 8 bands x {n_x} "
+        f"stars in batches of {batch_x}: {fr['stars_per_s']:.1f} stars/s, "
+        f"median distance bias {fr['dist_bias']:+.4f}, p90 |bias| "
+        f"{fr['dist_p90']:.4f}, launches {fr['launches']}; dense reference "
+        f"engine (screen_k=0) on the first {n_chk} stars in batches of "
+        f"{batch_chk}: {dr['stars_per_s']:.1f} stars/s, median distance "
+        f"bias {dr['dist_bias']:+.4f}; funnel likelihoods on those stars "
+        f"against the reference engine in float64 on the host on each "
+        f"star's shortlist ({x['ref_seconds']:.1f} s; fields as |dev| / "
+        f"{XLA_TOL}; held: a share {XLA_SHARE_TOL} of models with a field "
+        f"past its limit): "
+        f"{_acc_text(x['f64'])}; TF32-rounded control (must miss them): "
+        f"{_acc_text(x['control'])}; the dense engine against itself in "
+        f"float64 on the device, held alike: {_acc_text(x['dense64'])}; its "
+        f"TF32-rounded control: {_acc_text(x['dense_control'])}; best "
+        f"against the dense engine's maximum {x['best_gap']:.4g} nats for "
+        f"the {x['on_list']} stars whose dense maximum is shortlisted, "
+        f"{x['best_gap_all']:.4g} over all (reported: the lattice's "
+        f"near-degenerate models move the convergence tests, as in the "
+        f"JAX package), every shortlisted model against the dense engine "
+        f"{_acc_text(x['dense'])}  [{time.time() - t0:.1f} s]")
+    if not x["ok"]:
+        raise AssertionError("the reference-semantics funnel disagrees with "
+                             "the float64 reference engine, the dense "
+                             "engine with its float64 run, or a control "
+                             "passed")
+
+    t0 = time.time()
+    r = phase_rest(mc, labels, dev, stars(mc, n_star), batch, screen_k,
+                   n_sel, runs[4]["out"])
+    runs[9] = r["scan"]
+    log(f"phase 9 rest of BruteForce on the funnel: {n_star} stars in "
+        f"batches of {batch}, lnprior_ext on feh (std 0.1 around each "
+        f"star's true model), return_sel: scan_batches=2 "
+        f"{r['scan']['stars_per_s']:.1f} stars/s, scan_batches=1 "
+        f"{r['one']['stars_per_s']:.1f} stars/s, rows identical {r['same']}, "
+        f"drawn models among the selections {r['sel_ok']}; median |feh(draw)"
+        f" - feh(true)| {r['feh_ext']:.4f} with the prior, {r['feh_base']:.4f}"
+        f" without (phase 4); _fit's first {batch} tuples equal the rows "
+        f"{r['gen_ok']}; median distance bias {r['scan']['dist_bias']:+.4f},"
+        f" launches {r['scan']['launches']}; resume not run here (it "
+        f"writes HDF5 and the card machine has no h5py; tested on the CPU)"
+        f"  [{time.time() - t0:.1f} s]")
+    if not (r["ok"] and r["feh_ext"] < r["feh_base"]):
+        raise AssertionError("scan_batches, return_sel, lnprior_ext or _fit "
+                             "failed its check")
+
+    t0 = time.time()
+    fb = phase_fallback(dev, args.tiny, screen_k, n_sel)
+    runs[10] = fb
+    log(f"phase 10 fallback past 2**24 models: {fb['M']} models x 8 bands "
+        f"(float32, grid made in {fb['grid_s']:.1f} s), "
+        f"{len(fb['out']['model_idx'])} stars planted at index >= "
+        f"{fb['limit']}, one batch: {fb['stars_per_s']:.1f} stars/s, drawn "
+        f"indices in [{fb['limit']}, {2 * fb['limit']}) {fb['above']}, odd "
+        f"among them {fb['odd']}, every drawn model in its star's shortlist "
+        f"{fb['in_short']}, median distance bias {fb['dist_bias']:+.4f}, "
+        f"launches {fb['launches']}"
+        + (" (rehearsal: 4096 models, stars planted past 2048)"
+           if args.tiny else "") + f"  [{time.time() - t0:.1f} s]")
+    if not fb["ok"]:
+        raise AssertionError("the integer grid-index path was not taken")
+
     kernels = []
     for name, k in _native.KERNELS.items():
         entry = dict(name=name, route="cuda", source=k.source,
                      replaces=k.replaces,
-                     launches=runs[KERNEL_PHASE[name]]["launches"][name])
+                     launches=runs[KERNEL_PHASE[name]]["launches"][name],
+                     launches_by_phase={
+                         ph: runs[ph]["launches"][name]
+                         for ph in sorted(runs)
+                         if runs[ph]["launches"][name]})
         entry.update(results.get(name, {}))
         entry.update(attrs.get(name, {}))
         kernels.append(entry)

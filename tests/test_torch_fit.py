@@ -203,20 +203,16 @@ def test_funnel_draws_alike_with_and_without_kernel_rng(problem,
 
 
 NOT_PORTED = {
-    "engine_xla": dict(engine="xla"),
-    "mesh": dict(mesh=object()),
-    "scan_batches": dict(scan_batches=2),
-    "lnprior_ext": dict(lnprior_ext={"feh": np.zeros((2, 2))}),
-    "resume": dict(resume=True),
-    "ltol": dict(ltol=1e-2),
-    "ltol_subthresh": dict(ltol_subthresh=1e-3),
-    "mag_space_init": dict(mag_direct_init=False),
+    "mesh": (dict(mesh=object()), NotImplementedError,
+             "ROADMAP Queue 1 item 5"),
+    "unknown_engine": (dict(engine="pallas"), ValueError, "engine"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_unported_options_raise(case):
-    """What this slice does not port raises, naming its ROADMAP item."""
+    """The device mesh, not ported yet, raises naming its ROADMAP item;
+    an engine neither 'fused' nor 'xla' raises `ValueError`."""
     rng = np.random.default_rng(0)
     M, F = 600, 5
     mc = np.stack([rng.uniform(8, 16, (M, F)), rng.uniform(0.4, 1.1, (M, F)),
@@ -224,17 +220,19 @@ def test_unported_options_raise(case):
     labels = np.zeros(M, [("feh", float)])
     flux = 10 ** (-0.4 * mc[:2, :, 0])
     kw = dict(screen_k=256, verbose=False)
-    kw.update(NOT_PORTED[case])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    opts, exc, match = NOT_PORTED[case]
+    kw.update(opts)
+    with pytest.raises(exc, match=match):
         BruteForce(mc, labels, device="cpu").fit(
             flux, flux / 30, np.ones((2, F), bool), **kw)
 
 
 def test_card_free_import_and_cpu_rehearsal():
     """With jax, h5py and brutus_tpu made unimportable, the package
-    imports and `chip_smoke.py --cpu --tiny` runs its funnel paths and
-    its dense path to the end (no module of the card path needs
-    them)."""
+    imports and `chip_smoke.py --cpu --tiny` runs its funnel paths, its
+    dense path, the reference-semantics engines, the rest of
+    `BruteForce` and the integer grid-index path to the end (no module
+    of the card path needs them)."""
     code = (
         "import sys, runpy\n"
         "for m in ('jax', 'h5py', 'brutus_tpu'):\n"
@@ -252,4 +250,8 @@ def test_card_free_import_and_cpu_rehearsal():
     assert "phase 4 main path" in r.stdout
     assert "phase 5 funnel, fed normals" in r.stdout
     assert "phase 6 dense path" in r.stdout
+    assert "phase 8 reference-semantics funnel" in r.stdout
+    assert "phase 9 rest of BruteForce on the funnel" in r.stdout
+    assert "phase 10 fallback past 2**24 models" in r.stdout
+    assert "phase 7 rehearsal done on the CPU" in r.stdout
     assert '"platform": "gpu"' not in r.stdout

@@ -224,3 +224,38 @@ def test_funnel_end_to_end_matches(case):
         rows = np.arange(len(best))
         np.testing.assert_array_equal(pack[rows, -1, best][2:],
                                       p["idx"][2:])
+
+
+def test_padding_mask_is_exact_past_2_24():
+    """K1's padding mask compares grid indices as integers.  Past 2**24
+    float32 holds only even integers: on a grid of 2**24 + 4097 real
+    models (not a multiple of any tile), the last real model's index
+    2**24 + 4096 equals `n_real` once both are rounded, so a comparison
+    of floats would kill it.  Each star sits at the last real index:
+    its own model must stay finite and win, every model past it is
+    masked, and the pack equals the same fit with every index shifted
+    below 2**24 (bit for bit, the grid-index row aside)."""
+    P, F, B = 64, 8, 3
+    p = _problem(P, F, B, seed=5)
+    n_real = 2 ** 24 + 4097
+    _, _, star4 = _star_inputs(p)
+    cfg = TFitConfig()
+    mk = torch.as_tensor(p["mask"])
+    srow = TF.post_consts(mk, mk.sum(1).to(torch.float32),
+                          torch.as_tensor(p["err"]) ** 2)
+    coef = torch.as_tensor(p["mc"].transpose(2, 1, 0).reshape(3 * F, P))
+    coef = coef[:, None, :].expand(3 * F, B, P).contiguous()
+    pos = torch.arange(P, dtype=torch.int64)
+    own = torch.as_tensor(p["idx"])[:, None]
+    gidx = (n_real - 1 - own + pos).to(torch.int32)
+    pack = TF.fit_pack(star4, coef, gidx, srow, 0, 12, n_real, 64, cfg)
+    low = TF.fit_pack(star4, coef, gidx - 2 ** 24, srow, 0, 12,
+                      n_real - 2 ** 24, 64, cfg)
+    assert torch.equal(pack[:, :11], low[:, :11])
+    lnl = pack[:, 0]
+    win = lnl.argmax(1)
+    assert torch.equal(win, own[:, 0])
+    assert torch.isfinite(lnl.gather(1, own)).all()
+    past = pos[None] > own
+    assert past.any() and (lnl[past] < -1e29).all()
+    assert (lnl[~past] > -1e29).all()

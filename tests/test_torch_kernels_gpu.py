@@ -59,7 +59,7 @@ def _problem(M, F, B, seed, dev):
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
     return dict(mc=mc, tabs=tabs, flux=t(flux), err=t(err),
                 mask=torch.as_tensor(mask, device=dev), plx=t(1.0 / dist),
-                plxe=t(0.05 / dist))
+                plxe=t(0.05 / dist), idx=idx)
 
 
 @pytest.mark.parametrize("F", [8, 49])
@@ -153,6 +153,35 @@ def test_stacked_fit_kernel_matches_plain(cuda, F, tile):
     pad = idx >= tabs.n_real
     assert pad.any() and torch.equal(k[:, :2][pad[:, None].expand(
         -1, 2, -1)], q[:, :2][pad[:, None].expand(-1, 2, -1)])
+
+
+def test_fit_kernel_padding_mask_past_2_24(cuda):
+    """K1's padding mask compares grid indices as integers: on shortlists
+    of a grid of 2**24 + 4097 real models, each star's own model at the
+    last real index (2**24 + 4096, equal to `n_real` once both are
+    rounded to float32) stays finite and wins, every model past it is
+    masked, and the kernel equals its plain version on every row."""
+    P, F, B = 512, 8, 6
+    p = _problem(P, F, B, 77, cuda)
+    cfg = FitConfig()
+    star4, srow3, _, _ = _fit_inputs(p, cfg)
+    n_real = 2 ** 24 + 4097
+    coef = torch.as_tensor(p["mc"].transpose(2, 1, 0).reshape(3 * F, P),
+                           device=cuda)
+    coef = coef[:, None, :].expand(3 * F, B, P).contiguous()
+    pos = torch.arange(P, device=cuda)
+    own = torch.as_tensor(p["idx"], device=cuda)[:, None]
+    gidx = (n_real - 1 - own + pos).to(torch.int32).contiguous()
+    args = (star4, coef, gidx, srow3, 0, 12, n_real, 512, cfg)
+    k, q = TF.fit_pack(*args), TF.fit_pack_plain(*args)
+    dev = smoke.fit_deviation(k, q, gidx, n_real, 512)
+    assert smoke.fit_ok(dev), dev
+    assert torch.equal(k[:, 11:], q[:, 11:])
+    lnl = k[:, 0]
+    assert torch.equal(lnl.argmax(1), own[:, 0])
+    past = pos[None] > own
+    assert past.any() and (lnl[past] < -1e29).all()
+    assert (lnl[~past] > -1e29).all()
 
 
 @pytest.mark.parametrize("F,tile", SHAPES)
