@@ -20,8 +20,12 @@ every grid model -> `lnpost_grid`), and the reference-semantics funnel
 and dense engine (`engine="xla"`: the reference's convergence loops,
 `ops/optimize.py`, `ops/screen_xla.py`); custom prior callables,
 `lnprior_ext`, `scan_batches`, `resume`, `return_sel`, the `_fit`
-generator; and the foundations (`utils`, `priors`, `dustmap`, `io`).
-See ROADMAP.md for what is still to come (the device mesh first).
+generator; the foundations (`utils`, `priors`, `dustmap`, `io`); grid
+generation (`ops/interp.py`, `models`: the BC networks, the MIST track
+and isochrone interpolators, `SEDmaker.make_grid`); the samplers
+(`sampling`) and the cluster fit (`cluster.isochrone_loglike`,
+`fit_cluster`).  See ROADMAP.md for what is still to come (`los`,
+`offsets`, `pdf` next; the device mesh last).
 """
 
 __version__ = "0.1.0"

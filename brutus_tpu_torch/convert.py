@@ -19,6 +19,12 @@ grid.
 - The dense reference engine's tables (`reference_tables`): the
   `(M, F, 3)` coefficients and `(M,)` grid rows, unpadded, in the
   grid's dtype.
+
+The grid-generation objects from the arrays of the JAX package's own
+(as numpy), so that both packages compute from identical tables:
+`nn_from_numpy` (`FastNN.params`), `tracks_from_numpy`
+(`MISTtracks.xgrid`, `ygrid`, `predictions`, `gridpoints`) and
+`isochrone_from_numpy` (`Isochrone.tables` with its prediction index).
 """
 
 import dataclasses
@@ -162,5 +168,44 @@ def reference_tables(models, models_labels, labels_mask=None, device=None,
                        row(lnprior), lab("feh"), lab("loga"), len(mc))
 
 
+def nn_from_numpy(filters, params, device=None):
+    """A `FastNNPredictor` from the stacked weights `(w1, b1, w2, b2, w3,
+    b3, xmin, xmax)` of `brutus_tpu.models.nn.FastNN.params`."""
+    from .models.nn import FastNNPredictor
+    return FastNNPredictor(filters=filters, verbose=False, device=device,
+                           arrays=[np.asarray(a) for a in params])
+
+
+def tracks_from_numpy(xgrid, ygrid, predictions, gridpoints, device=None):
+    """A `MISTtracks` on the finished tables of
+    `brutus_tpu.models.tracks.MISTtracks` (its `xgrid`, `ygrid`,
+    `predictions` and `gridpoints`)."""
+    from .models.tracks import MISTtracks
+    tracks = MISTtracks.__new__(MISTtracks)
+    tracks._set_tables(gridpoints, [np.asarray(g) for g in xgrid],
+                       np.asarray(ygrid), predictions,
+                       resolve_device(device))
+    return tracks
+
+
+def isochrone_from_numpy(filters, xgrid, ygrid, predictions, nn_params,
+                         device=None):
+    """An `Isochrone` on the finished tables of
+    `brutus_tpu.models.isochrone.Isochrone` (`tables = (xgrid, ygrid,
+    nn_params)` and its `predictions`).  The EEP and age grids are the
+    tables' axes; `afe_u` is the (padded) afe axis."""
+    from .models.isochrone import Isochrone
+    iso = Isochrone.__new__(Isochrone)
+    iso.filters = list(filters)
+    iso.pred_labels = iso.predictions = list(predictions)
+    xgrid = [np.asarray(g, float) for g in xgrid]
+    iso.feh_u, iso.afe_u, iso.loga_u, iso.eep_u = xgrid
+    dev = resolve_device(device)
+    iso._set_tables(xgrid, np.asarray(ygrid), dev)
+    iso.FNNP = nn_from_numpy(filters, nn_params, dev)
+    return iso
+
+
 __all__ = ["from_numpy_grid", "dense_tables", "reference_tables",
-           "default_grid_lnprior", "GridTables", "DenseTables"]
+           "default_grid_lnprior", "GridTables", "DenseTables",
+           "nn_from_numpy", "tracks_from_numpy", "isochrone_from_numpy"]

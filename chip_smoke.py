@@ -2,7 +2,7 @@
 """Smoke run of `brutus_tpu_torch` on one NVIDIA H100.
 
     python3 chip_smoke.py               # the card run (needs one CUDA card)
-    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-10 on the CPU
+    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-12 on the CPU
     python3 chip_smoke.py --profile     # where each fit path's time goes
     python3 chip_smoke.py --rates 2     # warm stars/s of the fused paths
 
@@ -53,6 +53,30 @@ Phases, each printing one line with its elapsed seconds:
    models, 64 stars planted past 2**24, one funnel batch: odd drawn
    indices there (float32 holds only even ones) show the integer
    grid-index path, and every drawn model lies in its star's shortlist;
+11. grid generation: `SEDmaker.make_grid` in float64 over the
+   reference's 818,620 labels (the default mini, EEP and [Fe/H] grids,
+   afe 0, single stars, the 6 x 7 (Av, Rv) lattice) on MIST-schema
+   tracks and an 8-band network built in memory from a seed, timed in
+   labels/s with its peak device memory; 4096 seeded labels regenerated
+   on the host in float64 (the same validity and NaN pattern, values
+   within `GRID_TOL`); then the funnel on the grid's valid models (512
+   stars of phase 4's settings), K4's valid columns there, and, as a
+   report, the reference-semantics funnel against the dense reference
+   engine on that grid;
+12. the cluster fit: an `Isochrone` built in memory (15 [Fe/H] nodes,
+   log age 5.0-10.3, EEP 202-808), a 1050-star M67-like cluster, on
+   two BC networks: `smooth_nn_arrays`, on which the likelihood
+   resolves the cluster, and, as the control, phase 11's, on which it
+   is a needle on an outlier plateau.  On each, the likelihood at 8
+   seeded thetas against the host in float64 (`LOGLIKE_TOL`), through
+   `isochrone_loglike` and through `fit_cluster`'s posterior in one
+   batch; then `fit_cluster` at its widths (2000 EEPs, 15 smf values,
+   32 walkers, 1000 steps, every cluster parameter free) within
+   `HELD_BOUNDS`, whose midpoints lie off the truth, timed in
+   walker-steps/s and checked by `recovery` (medians within
+   `RECOVERY`, outlier fraction, the MAP against the truth, posterior
+   widths): the fit on `smooth_nn_arrays` must pass, the control must
+   fail;
 7. last, a `kernels` JSON line: each kernel's launches during the path
    that runs it (phase 4, 5 or 6; each must be > 0) and on every phase
    that launched it, and its phase-3 deviation and times; the
@@ -69,7 +93,9 @@ and fit settings, it prints the host set-up each `fit` call repeats,
 warm fits timed in turns (funnel / funnel with fed normals / funnel
 with fed normals / funnel at 512 stars, dense twice at 256, the
 reference-semantics funnel at 128 stars and its dense engine at 16,
-twice each, then the funnel at 4096), per path a `torch.profiler` trace
+twice each, then the funnel at 4096, then warm `make_grid` and
+`fit_cluster` of phases 11-12 in turns, with the stage split of one
+grid chunk and of a 10-step cluster fit), per path a `torch.profiler` trace
 of one warm fit
 (device time by kernel, busy time, idle share), and each hand-written
 kernel's launches x (ms - bound) on the path that runs it (K1's bound
@@ -730,11 +756,11 @@ def fit_stars(bf, s, dev, batch, screen_k, n_sel_max, kernel_rng=True,
 
 
 def phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel_max,
-              kernel_rng=True, s=None, bf=None, **extra):
+              kernel_rng=True, s=None, bf=None, max_bias=0.25, **extra):
     """A cold `fit_stars` of `n_star` stars (`stars(mc, n_star)` unless
     `s` is given), checked: finite outputs of the expected shapes and a
-    median distance bias below 25%.  The results are returned under
-    `out`."""
+    median distance bias below `max_bias` (None: reported only).  The
+    results are returned under `out`."""
     from brutus_tpu_torch import BruteForce
     s = stars(mc, n_star) if s is None else s
     bf = BruteForce(mc, labels, device=dev) if bf is None else bf
@@ -750,7 +776,7 @@ def phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel_max,
     d_med = np.median(out["dist"], axis=1)
     bias = float(np.median(d_med / s["dist"] - 1.0))
     p90 = float(np.quantile(np.abs(d_med / s["dist"] - 1.0), 0.9))
-    if not abs(bias) < 0.25:
+    if max_bias is not None and not abs(bias) < max_bias:
         raise AssertionError(f"posterior distances are off: median "
                              f"bias {bias:+.3f}")
     return dict(seconds=dt, stars_per_s=n / dt, recall=recall,
@@ -1044,6 +1070,426 @@ def phase_fallback(dev, tiny, screen_k, n_sel):
                 odd=odd, in_short=in_short, ok=odd > 0 and in_short)
 
 
+# Phases 11-12: grid generation and the cluster fit, on tables of the MIST
+# schema built in memory from a seed (the card machine has no h5py, and
+# the repository has no MIST or C3K files).
+
+GRID_FILTERS = ["PS_g", "PS_r", "PS_i", "PS_z", "PS_y", "2MASS_J",
+                "2MASS_H", "2MASS_Ks"]
+# The [Fe/H] nodes of the MIST v1.2 track and isochrone libraries.
+MIST_FEH = np.array([-4.0, -3.5, -3.0, -2.5, -2.0, -1.75, -1.5, -1.25,
+                     -1.0, -0.75, -0.5, -0.25, 0.0, 0.25, 0.5])
+
+
+def analytic_physics(mini, eep, feh, afe):
+    """Smooth synthetic stellar physics, monotone age along EEP (a copy
+    of `examples/_synth.py::analytic_physics`)."""
+    eep = np.asarray(eep, dtype=float)
+    loga = 9.0 + 0.004 * (eep - 350.0) - 1.2 * np.log10(mini)
+    logt = 3.75 - 0.2 * (eep - 350.0) / 600.0 + 0.03 * feh \
+        + 0.1 * np.log10(mini)
+    logl = 3.5 * np.log10(mini) + 0.0015 * (eep - 202.0)
+    logg = 4.4 - 0.0012 * (eep - 202.0) - 0.05 * np.log10(mini)
+    return {"log_age": loga, "log_Teff": logt, "log_L": logl,
+            "log_g": logg, "[Fe/H]": feh - 0.05 + 0 * eep,
+            "[a/Fe]": afe + 0 * eep, "star_mass": mini + 0 * eep,
+            "log_R": 0.5 * logl - 2 * (logt - 3.76)}
+
+
+def synth_nn_arrays(seed=42):
+    """An 8-band, 8-wide BC network in the layout and with the weight
+    scales of `examples/_synth.py:59-75` (corrections varying by 1-2 mag
+    over the label grid), as `read_nn_file` returns a file's arrays."""
+    rng = np.random.default_rng(seed)
+    nf, h = len(GRID_FILTERS), 8
+    return (rng.normal(size=(nf, h, 6)) * 5.0,
+            rng.normal(size=(nf, h, 1)) * 1.0,
+            rng.normal(size=(nf, h, h)) * 1.5,
+            rng.normal(size=(nf, h, 1)) * 0.5,
+            rng.normal(size=(nf, 1, h)) * 6.0,
+            rng.normal(size=(nf, 1, 1)) * 0.3,
+            np.array([2000.0, 0.0, -3.0, -0.3, 0.0, 1.0]),
+            np.array([20000.0, 6.0, 1.0, 0.7, 2.5, 6.0]))
+
+
+def smooth_nn_arrays(seed=42):
+    """The same layout with the first layer weighted toward Teff (scales
+    3, 0.5, 0.5, 0.5, 0.5, 0.5 on Teff, logg, feh, afe, Av, Rv) and the
+    other layers at the scales of the JAX package's cluster test
+    (`tests/test_models.py:48-60`): colours that change along the
+    isochrone and magnitudes that change smoothly with Av, Rv and
+    [Fe/H]."""
+    rng = np.random.default_rng(seed)
+    nf, h = len(GRID_FILTERS), 8
+    cols = np.array([3.0, 0.5, 0.5, 0.5, 0.5, 0.5])
+    return (rng.normal(size=(nf, h, 6)) * cols,
+            rng.normal(size=(nf, h, 1)) * 0.1,
+            rng.normal(size=(nf, h, h)) * 0.5,
+            rng.normal(size=(nf, h, 1)) * 0.1,
+            rng.normal(size=(nf, 1, h)) * 0.5,
+            rng.normal(size=(nf, 1, 1)) * 0.1,
+            np.array([2000.0, 0.0, -3.0, -0.3, 0.0, 1.0]),
+            np.array([20000.0, 6.0, 1.0, 0.7, 2.5, 6.0]))
+
+
+def synth_nn(dev, arrays=None):
+    from brutus_tpu_torch.models import FastNNPredictor
+    return FastNNPredictor(filters=GRID_FILTERS, device=dev, verbose=False,
+                           arrays=synth_nn_arrays() if arrays is None
+                           else arrays)
+
+
+def synth_library(tiny):
+    """MIST-schema track rows: mini 0.5-2.0 in steps of 0.01, EEP 202-808
+    in steps of 1, the 15 MIST [Fe/H] nodes, afe 0 (`--tiny`: mini in
+    steps of 0.05, EEP in steps of 4)."""
+    from brutus_tpu_torch.models.tracks import tracks_library
+    step_m, step_e = (0.05, 4.0) if tiny else (0.01, 1.0)
+    return tracks_library(np.arange(0.5, 2.0 + 1e-9, step_m),
+                          np.arange(202.0, 808.0 + 1e-9, step_e), MIST_FEH,
+                          np.array([0.0]), analytic_physics)
+
+
+def synth_maker(library, dev):
+    from brutus_tpu_torch.models import SEDmaker
+    return SEDmaker(filters=GRID_FILTERS, library=library, nn=synth_nn(dev),
+                    device=dev, verbose=False)
+
+
+def grid_kwargs(tiny):
+    """`make_grid`'s keywords of phase 11: the default mini, EEP and
+    [Fe/H] grids and (Av, Rv) lattice, one afe, single stars (818,620
+    labels, the reference's count); `--tiny` coarser label grids."""
+    kw = dict(afe_grid=np.array([0.0]), smf_grid=np.array([0.0]),
+              verbose=False)
+    if tiny:
+        kw.update(mini_grid=np.arange(0.5, 2.0 + 1e-5, 0.1),
+                  eep_grid=np.arange(202.0, 808.0 + 1e-5, 12.0),
+                  feh_grid=np.arange(-2.0, 0.5 + 1e-5, 0.25))
+    return kw
+
+
+# Phase 11 holds the card's grid against the port on the host in float64
+# on a sample of the labels: the same validity and NaN pattern, finite
+# coefficients within GRID_TOL mag and predictions within GRID_TOL.
+GRID_TOL = 1e-8
+
+
+def grid_labels(mk, sel):
+    """The grid's label array as `io.load_models` builds it from a
+    generated file (inputs and predictions, single stars), for `sel`."""
+    names = [n for n in ("mini", "feh", "eep", "loga", "logl", "logt",
+                         "logg", "agewt") if n in mk.grid_label.dtype.names
+             or n in mk.grid_param.dtype.names]
+    out = np.zeros(int(sel.sum()), [(n, float) for n in names])
+    for n in names:
+        src = mk.grid_label if n in mk.grid_label.dtype.names \
+            else mk.grid_param
+        out[n] = src[n][sel]
+    return out
+
+
+def grid_sample_check(mk, library, n_sample, seed=3):
+    """`n_sample` seeded labels of the card's grid regenerated by the
+    port on the host in float64 (`grid_rows` of a CPU `SEDmaker` on the
+    same tables): the validity flags and NaN patterns equal, and the
+    largest |dev| of the finite coefficients and predictions."""
+    from brutus_tpu_torch.models.sedmaker import (extinction_lattice,
+                                                  split_rows)
+    cpu = torch.device("cpu")
+    host = synth_maker(library, cpu)
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(len(mk.grid_label), n_sample, replace=False))
+    g = mk.grid_label[idx]
+    flat = host.grid_rows(g["mini"], g["eep"], g["feh"], g["afe"], g["smf"],
+                          *extinction_lattice(cpu)).numpy()
+    coeffs, params, good = split_rows(flat, len(host.filters),
+                                      len(host.predictions))
+    card_c = np.stack([mk.grid_sed[f][idx] for f in mk.filters], axis=1)
+    card_p = np.stack([mk.grid_param[n][idx] for n in mk.predictions], 1)
+    same = (np.array_equal(good, mk.grid_sel[idx])
+            and np.array_equal(np.isnan(coeffs), np.isnan(card_c))
+            and np.array_equal(np.isnan(params), np.isnan(card_p)))
+    dev_c = np.nanmax(np.abs(coeffs - card_c)) if good.any() else 0.0
+    dev_p = np.nanmax(np.abs(params - card_p))
+    return dict(same_pattern=same, coeff_dev=float(dev_c),
+                param_dev=float(dev_p), n_valid=int(good.sum()),
+                n_sample=n_sample,
+                ok=same and dev_c <= GRID_TOL and dev_p <= GRID_TOL)
+
+
+def phase_grid(dev, tiny, screen_k, n_sel):
+    """Phase 11: `SEDmaker.make_grid` on the card in float64 (labels/s,
+    peak device memory), a sample of it against the host, then the
+    funnel on the generated grid's valid models (512 stars of phase 4's
+    settings, batches of 128)."""
+    from brutus_tpu_torch import BruteForce
+    t0 = time.time()
+    library = synth_library(tiny)
+    mk = synth_maker(library, dev)
+    build_s = time.time() - t0
+    kw = grid_kwargs(tiny)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mk.make_grid(**kw)
+    gen_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else math.nan)
+    n_grid = len(mk.grid_label)
+    check = grid_sample_check(mk, library, min(4096, n_grid))
+    sel = mk.grid_sel
+    mc = np.stack([mk.grid_sed[f][sel] for f in mk.filters],
+                  axis=1).astype(np.float32)
+    labels = grid_labels(mk, sel)
+    n_star, batch = (16, 8) if tiny else (512, 128)
+    s = stars(mc, n_star)
+    bf = BruteForce(mc, labels, device=dev)
+    fit = phase_fit(mc, labels, dev, n_star, batch, screen_k, n_sel, s=s,
+                    bf=bf, max_bias=None)
+    cols = (mc_columns(bf, s, dev, batch, screen_k, n_sel)
+            if dev.type == "cuda" else (math.nan, math.nan))
+    # Reported: the reference-semantics funnel against the dense
+    # reference engine on this grid (phase 8 holds them on the lattice).
+    n_xla = 8 if tiny else 16
+    xla = xla_deviation(mc, labels, s, dev, n_xla, 8, screen_k)
+    return dict(fit, n_grid=n_grid, build_s=build_s, gen_s=gen_s, xla=xla,
+                n_xla=n_xla,
+                labels_per_s=n_grid / gen_s, peak_gib=peak,
+                valid_share=float(sel.mean()), n_models=int(sel.sum()),
+                check=check, mc_valid_share=cols[0] / (batch * n_sel),
+                mc_active_share=cols[1] / (batch * n_sel))
+
+
+def synth_isochrone_arrays(tiny):
+    """Isochrone tables in the layout of `examples/_synth.py:77-105`: the
+    15 MIST [Fe/H] nodes, afe 0, log age 5.0-10.3 in steps of 0.05, EEP
+    202-808 in steps of 1 (`--tiny`: ages in steps of 0.1, EEP in steps
+    of 4), mini from inverting the analytic loga(mini, eep), NaN outside
+    0.3-2.5 Msun; as `read_isochrone_file` returns a file's arrays."""
+    loga_u = np.round(np.arange(5.0, 10.3 + 1e-9, 0.1 if tiny else 0.05), 10)
+    eep_u = np.arange(202.0, 808.0 + 1e-9, 4.0 if tiny else 1.0)
+    labels = ["mini", "mass", "logl", "logt", "logr", "logg", "feh_surf",
+              "afe_surf"]
+    grid = np.full((len(MIST_FEH), 1, len(loga_u), len(eep_u),
+                    len(labels)), np.nan)
+    for i, z in enumerate(MIST_FEH):
+        for k, la in enumerate(loga_u):
+            mini = 10 ** ((9.0 + 0.004 * (eep_u - 350.0) - la) / 1.2)
+            ok = (mini > 0.3) & (mini < 2.5)
+            p = analytic_physics(mini, eep_u, z, 0.0)
+            cols = [mini, mini, p["log_L"], p["log_Teff"], p["log_R"],
+                    p["log_g"], z - 0.05 + 0 * mini, 0 * mini]
+            for j, v in enumerate(cols):
+                grid[i, 0, k, :, j] = np.where(ok, v, np.nan)
+    return MIST_FEH, np.array([0.0]), loga_u, eep_u, grid, labels
+
+
+def synth_isochrone(arrays, dev, nn_arrays=None):
+    from brutus_tpu_torch.models import Isochrone
+    return Isochrone(filters=GRID_FILTERS, arrays=arrays,
+                     nn=synth_nn(dev, nn_arrays), device=dev, verbose=False)
+
+
+# The cluster of phase 12, M67-like: [Fe/H], log age, Av, Rv, distance (pc).
+CLUSTER_TRUTH = dict(feh=0.0, loga=9.6, av=0.1, rv=3.1, dist=850.0)
+
+
+def synth_cluster(iso, n_member, seed=12):
+    """A co-eval cluster at `CLUSTER_TRUTH` in the isochrone's bands:
+    `n_member` single stars along the isochrone, uniform in initial mass
+    (the likelihood's own mass measure, reference cluster.py:367-375),
+    plus 5% as many field stars (magnitudes spread over the members'
+    range, distances 0.3-3 kpc); SNR 50-100 per star and parallax
+    errors of 0.05 mas."""
+    rng = np.random.default_rng(seed)
+    eep = np.linspace(202.0, 808.0, 6000)
+    seds, p1, _ = iso.get_seds(eep=eep, mini_bound=0.08, **CLUSTER_TRUTH)
+    seds = seds.cpu().numpy()
+    ok = np.isfinite(seds).all(1) & np.isfinite(p1["mini"])
+    mini, seds = p1["mini"][ok], seds[ok]
+    pick = np.clip(np.searchsorted(mini, rng.uniform(
+        mini.min(), mini.max(), n_member)), 0, len(mini) - 1)
+    mags = seds[pick]
+    n_field = n_member // 20
+    lo, hi = mags.min(0), mags.max(0)
+    field = lo + rng.uniform(size=(n_field, mags.shape[1])) * (hi - lo)
+    mags = np.concatenate([mags, field])
+    flux = 10 ** (-0.4 * mags)
+    snr = rng.uniform(50.0, 100.0, (len(mags), 1))
+    err = flux / snr
+    flux = flux + rng.normal(size=flux.shape) * err
+    dist = np.r_[np.full(n_member, CLUSTER_TRUTH["dist"]),
+                 rng.uniform(300.0, 3000.0, n_field)]
+    plxe = np.full(len(mags), 0.05)
+    plx = 1e3 / dist + rng.normal(size=len(mags)) * plxe
+    return dict(phot=flux, err=err, parallax=plx, parallax_err=plxe,
+                member=np.r_[np.ones(n_member, bool), np.zeros(n_field,
+                                                               bool)])
+
+
+# Phase 12 holds the cluster likelihood on the card against the port on
+# the host in float64 at `CLUSTER_THETAS` seeded parameter sets, through
+# `isochrone_loglike` one set at a time and through `fit_cluster`'s
+# posterior all sets at once: relative deviation at most LOGLIKE_TOL.
+LOGLIKE_TOL = 1e-9
+CLUSTER_THETAS = 8
+# The uniform prior of phase 12's fits (Rv and the outlier fraction at
+# `DEFAULT_BOUNDS`' 2.4-4.2 and 1e-4-0.5): a user's prior for an old
+# open cluster, with ages over 2 Gyr, and off the truth, so that a chain
+# that never moves, or a flat likelihood, leaves its medians outside
+# RECOVERY (midpoints [Fe/H] -0.25, log age 9.8, Av 0.5, 950 pc, Rv
+# 3.3, fout 0.25).
+HELD_BOUNDS = dict(feh=(-1.0, 0.5), loga=(9.3, 10.3), av=(0.0, 1.0),
+                   dist=(700.0, 1200.0))
+# A fit recovers the cluster when (1) its posterior medians lie within
+# the limits of `tests/test_applications.py::
+# test_fit_cluster_recovers_params` (RECOVERY: [Fe/H], log age, Av
+# within 0.15, the distance within 60 pc), (2) the median outlier
+# fraction is below FOUT_MAX (5% of the stars are field stars), (3) the
+# log-likelihood at its MAP is at least that at the truth (outlier
+# fraction 0.05) less MAP_SLACK nats, as that test asks, and (4) each
+# parameter of RECOVERY has a 16-84% posterior width below WIDTH_SHARE
+# of its bounds.
+RECOVERY = dict(feh=0.15, loga=0.15, av=0.15, dist=60.0)
+FOUT_MAX = 0.2
+MAP_SLACK = 2.0
+WIDTH_SHARE = 0.1
+
+
+def cluster_thetas(n, seed=8):
+    """`n` seeded parameter sets around `CLUSTER_TRUTH`: half within a
+    per-star posterior width of it (most stars inliers), half further
+    (most stars outliers); all inside phase 12's prior."""
+    rng = np.random.default_rng(seed)
+    t = CLUSTER_TRUTH
+    base = np.array([t["feh"], t["loga"], t["av"], t["rv"], t["dist"], 0.05])
+    scale = np.array([0.05, 0.05, 0.02, 0.1, 10.0, 0.02])
+    far = np.arange(n) >= n // 2
+    step = rng.normal(size=(n, 6)) * scale * np.where(far, 10.0, 1.0)[:, None]
+    lo, hi = cluster_bounds()
+    return np.clip(base + step, lo + 0.01 * (hi - lo), hi - 0.01 * (hi - lo))
+
+
+def cluster_bounds():
+    """Phase 12's prior as `(lo, hi)` arrays in `theta` order."""
+    from brutus_tpu_torch.cluster import DEFAULT_BOUNDS
+    b = dict(DEFAULT_BOUNDS, **HELD_BOUNDS)
+    rows = [b[k] for k in ("feh", "loga", "av", "rv", "dist", "fout")]
+    return np.array(rows).T
+
+
+def cluster_loglikes(iso, host, data, kw, dev):
+    """The likelihood at `cluster_thetas` on the card, one set at a time
+    through `isochrone_loglike` and all at once through the posterior
+    that `fit_cluster` samples (the same `_cluster_core` call, the sets
+    in its groups), each against `isochrone_loglike` on the host in
+    float64."""
+    from brutus_tpu_torch import cluster as TC
+    cpu = torch.device("cpu")
+    args = (data["phot"], data["err"])
+    thetas = cluster_thetas(CLUSTER_THETAS)
+    ref = np.array([TC.isochrone_loglike(th, host, *args, device=cpu, **kw)
+                    for th in thetas])
+    one = np.array([TC.isochrone_loglike(th, iso, *args, device=dev, **kw)
+                    for th in thetas])
+    post = TC._cluster_posterior(
+        iso, *args, "free", "fixed", "fixed", 0.08, 480.0, None,
+        kw["eep_grid"], kw["parallax"], kw["parallax_err"], 0.95, True,
+        HELD_BOUNDS, dev)
+    lo, hi = post["lo"].cpu().numpy(), post["hi"].cpu().numpy()
+    batch = post["logpost"](torch.as_tensor((thetas - lo) / (hi - lo),
+                                            device=dev)).cpu().numpy()
+    per_set = len(TC.DEFAULT_SMF_GRID) * len(kw["eep_grid"]) * len(args[0])
+    rel = lambda a: float(np.max(np.abs(a - ref) / np.abs(ref)))
+    return dict(loglikes=ref.tolist(), dev_one=rel(one), dev_batch=rel(batch),
+                group=max(1, TC.BLOCK_ELEMENTS // per_set))
+
+
+def recovery(out, loglike):
+    """Phase 12's recovery check of a `fit_cluster` result, with the
+    reading of each of its four parts."""
+    s = out["samples"]
+    names = out["names"]
+    med = dict(zip(names, np.median(s, axis=0)))
+    width = dict(zip(names, np.percentile(s, 84, axis=0)
+                     - np.percentile(s, 16, axis=0)))
+    b = dict(zip(("feh", "loga", "av", "rv", "dist", "fout"),
+                 cluster_bounds().T))
+    t = CLUSTER_TRUTH
+    truth = np.array([t["feh"], t["loga"], t["av"], t["rv"], t["dist"],
+                      0.05])
+    off = {k: abs(med[k] - t[k]) for k in RECOVERY}
+    share = {k: width[k] / (b[k][1] - b[k][0]) for k in RECOVERY}
+    ll_map = loglike(out["theta_full"]["cluster"])
+    ll_truth = loglike(truth)
+    parts = dict(medians=all(off[k] <= RECOVERY[k] for k in RECOVERY),
+                 fout=bool(med["fout"] < FOUT_MAX),
+                 map=bool(ll_map >= ll_truth - MAP_SLACK),
+                 widths=all(share[k] < WIDTH_SHARE for k in RECOVERY))
+    return dict(median=med, off=off, width_share=share, ll_map=ll_map,
+                ll_truth=ll_truth, parts=parts,
+                recovered=all(parts.values()))
+
+
+def fit_text(c, n_steps, n_burn):
+    """A phase-12 fit's report."""
+    r = c["rec"]
+    rnd = lambda d: {k: round(float(v), 4) for k, v in d.items()}
+    return (f"fit_cluster, {c['n_obj']} stars, {c['n_eep']} EEPs x 15 smf "
+            f"values, 32 walkers x {n_steps} steps ({n_burn} burn-in): "
+            f"{c['fit_s']:.1f} s, {c['walker_steps_per_s']:.1f} "
+            f"walker-steps/s, peak device memory {c['peak_gib']:.3f} GiB, "
+            f"acceptance {c['acceptance']:.3f}; posterior medians "
+            f"{rnd(r['median'])} against {CLUSTER_TRUTH}, 16-84% widths "
+            f"over the bounds {rnd(r['width_share'])}, log-likelihood at "
+            f"the MAP {r['ll_map']:.2f}, at the truth (fout 0.05) "
+            f"{r['ll_truth']:.2f}; checks {r['parts']}: recovered "
+            f"{r['recovered']}")
+
+
+def phase_cluster(dev, tiny, n_steps, n_burn, nn_arrays=None):
+    """Phase 12 on one BC network (`nn_arrays`, phase 11's by default):
+    an `Isochrone` built in memory, a synthetic M67-like cluster, the
+    likelihood on the card against the host in float64
+    (`cluster_loglikes`), and `fit_cluster` at its widths (every cluster
+    parameter free, 2,000 EEPs, `DEFAULT_SMF_GRID`, 32 walkers) within
+    `HELD_BOUNDS`, timed in walker-steps/s and checked by `recovery`."""
+    from brutus_tpu_torch.cluster import fit_cluster, isochrone_loglike
+    cpu = torch.device("cpu")
+    t0 = time.time()
+    arrays = synth_isochrone_arrays(tiny)
+    iso = synth_isochrone(arrays, dev, nn_arrays)
+    host = synth_isochrone(arrays, cpu, nn_arrays)
+    data = synth_cluster(host, 40 if tiny else 1000)
+    build_s = time.time() - t0
+    n_eep = 150 if tiny else 2000
+    kw = dict(parallax=data["parallax"], parallax_err=data["parallax_err"],
+              eep_grid=np.linspace(202.0, 808.0, n_eep))
+    args = (data["phot"], data["err"])
+    t0 = time.time()
+    lls = cluster_loglikes(iso, host, data, kw, dev)
+    check_s = time.time() - t0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fit_cluster(iso, *args, n_walkers=32, n_steps=n_steps,
+                      n_burn=n_burn, seed=1, device=dev, bounds=HELD_BOUNDS,
+                      **kw)
+    fit_s = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if dev.type == "cuda" else math.nan)
+    rec = recovery(out, lambda th: isochrone_loglike(th, iso, *args,
+                                                     device=dev, **kw))
+    return dict(lls, n_obj=len(args[0]), n_eep=n_eep, build_s=build_s,
+                check_s=check_s, fit_s=fit_s,
+                walker_steps_per_s=32 * n_steps / fit_s, peak_gib=peak,
+                rec=rec, acceptance=out["acceptance"],
+                rhat=out["rhat"].tolist())
+
+
 # --profile: the fit paths, their settings and the kernels each runs,
 # with their bounds at that path's shapes (750,080 padded models,
 # 8 bands; funnel batches of 128 with 48 blocks of 256 per star,
@@ -1128,7 +1574,7 @@ def path_moving_shares(mc, labels, dev):
     return shares
 
 
-def mc_columns(bf, s, dev):
+def mc_columns(bf, s, dev, batch=128, screen_k=12288, n_sel=2048):
     """K4's (star, model) columns per launch in a funnel fit of the stars
     `s`, averaged over its launches: `(valid, active)`, active at the
     skip tile the path passes."""
@@ -1144,7 +1590,7 @@ def mc_columns(bf, s, dev):
 
     TP.mc_integrate = record
     try:
-        fit_stars(bf, s, dev, 128, 12288, 2048)
+        fit_stars(bf, s, dev, batch, screen_k, n_sel)
     finally:
         TP.mc_integrate = orig
     return tuple(sum(c[i] for c in calls) / len(calls) for i in (0, 1))
@@ -1294,6 +1740,150 @@ def rates_main(dev, rounds):
     return 0
 
 
+def stage_ms(fn, stages):
+    """Run `fn()` once with each function `stages[label] = [(module,
+    name), ...]` bracketed by CUDA events at every call; returns each
+    label's summed milliseconds on the stream (a stage called inside
+    another counts in both)."""
+    marks = {label: [] for label in stages}
+    saved = []
+    for label, sites in stages.items():
+        for mod, name in sites:
+            f = getattr(mod, name)
+            saved.append((mod, name, f))
+
+            def wrapped(*a, _f=f, _l=label, **k):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = _f(*a, **k)
+                e.record()
+                marks[_l].append((s, e))
+                return out
+            setattr(mod, name, wrapped)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, f in saved:
+            setattr(mod, name, f)
+    return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in
+            marks.items()}
+
+
+def busy_trace(fn):
+    """Wall seconds, device busy seconds, idle share and the top device
+    events of `fn()` under `torch.profiler`."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.time()
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    cuda_type = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda_type
+              and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in events) / 1e6
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=1 - busy / wall if events else math.nan,
+                top_device_ms={e.key[:60]: _device_us(e) / 1e3 for e in top})
+
+
+def profile_generation(dev, rounds=2):
+    """`--profile` for phases 11-12: warm `make_grid` (phase 11's grid)
+    and warm `fit_cluster` (phase 12's held fit, 100 steps) timed in
+    turns, and the stage split (CUDA events) and busy time of one
+    `make_grid` chunk of single stars, one of binaries (smf 0.5: the
+    bisection and the secondary, which single-star chunks skip), and
+    one `fit_cluster` run of 10 steps."""
+    from brutus_tpu_torch import cluster as TC
+    from brutus_tpu_torch.models import nn as TN, sedmaker as TS
+    from brutus_tpu_torch.models import tracks as TT
+    from brutus_tpu_torch.models.sedmaker import extinction_lattice
+    from brutus_tpu_torch.cluster import fit_cluster
+    mk = synth_maker(synth_library(False), dev)
+    kw = grid_kwargs(False)
+    arrays = synth_isochrone_arrays(False)
+    nn = smooth_nn_arrays()
+    iso = synth_isochrone(arrays, dev, nn)
+    data = synth_cluster(synth_isochrone(arrays, torch.device("cpu"), nn),
+                         1000)
+    ckw = dict(parallax=data["parallax"], parallax_err=data["parallax_err"],
+               eep_grid=np.linspace(202.0, 808.0, 2000), n_walkers=32,
+               bounds=HELD_BOUNDS, device=dev)
+
+    def grid():
+        t0 = time.time()
+        mk.make_grid(**kw)
+        return len(mk.grid_label) / (time.time() - t0)
+
+    def cluster(n_steps=100):
+        t0 = time.time()
+        fit_cluster(iso, data["phot"], data["err"], n_steps=n_steps,
+                    n_burn=n_steps // 2, **ckw)
+        torch.cuda.synchronize()
+        return 32 * n_steps / (time.time() - t0)
+
+    grid(), cluster()
+    rates = dict(make_grid_labels_per_s=[], fit_cluster_walker_steps_per_s=[])
+    for _ in range(rounds):
+        for name, f in (("make_grid_labels_per_s", grid),
+                        ("fit_cluster_walker_steps_per_s", cluster),
+                        ("fit_cluster_walker_steps_per_s", cluster),
+                        ("make_grid_labels_per_s", grid)):
+            rates[name].append(f())
+    log(f"warm grid generation and cluster fit, in turns: {rates}")
+
+    lattice, fit = extinction_lattice(dev)
+    stages = {"interpolation": [(TT, "interpn"), (TS, "interpn")],
+              "bisection": [(TS, "interp1d_monotone_bisect")],
+              "networks": [(TN, "nneval_params")],
+              "reddening fit": [(TS, "_wls_line")]}
+    # Labels whose binaries of smf 0.5 have a secondary (mini * smf at
+    # least the tracks' 0.5 Msun, EEP at most 480).
+    g = mk.grid_label[(mk.grid_label["mini"] >= 1.0)
+                      & (mk.grid_label["eep"] <= 480.0)][:8192]
+    out = {}
+    for what, smf in (("single stars", 0.0), ("binaries, smf 0.5", 0.5)):
+        lab = {k: np.asarray(g[k]) for k in ("mini", "eep", "feh", "afe")}
+        lab["smf"] = np.full(len(g), smf)
+
+        copies = []
+
+        def chunk():
+            flat = mk.grid_rows(lab["mini"], lab["eep"], lab["feh"],
+                                lab["afe"], lab["smf"], lattice, fit)
+            c0 = torch.cuda.Event(enable_timing=True)
+            c1 = torch.cuda.Event(enable_timing=True)
+            c0.record()
+            flat.cpu()
+            c1.record()
+            copies.append((c0, c1))
+        chunk()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        split = stage_ms(chunk, stages)
+        e1.record()
+        torch.cuda.synchronize()
+        split["copy to host"] = copies[-1][0].elapsed_time(copies[-1][1])
+        out[what] = dict(chunk_ms=e0.elapsed_time(e1), stages_ms=split,
+                         **busy_trace(chunk))
+        log(f"make_grid chunk of 8192 {what}: {out[what]}")
+    split = stage_ms(lambda: cluster(10), {
+        "population SEDs": [(TC, "population_seds_multi")],
+        "chi-square products": [(TC, "_chi2_cmd")],
+        "log-pdf": [(TC, "_chi2_lnl")],
+        "logsumexp": [(torch, "logsumexp")]})
+    out["fit_cluster 10 steps"] = dict(stages_ms=split,
+                                       **busy_trace(lambda: cluster(10)))
+    log(f"fit_cluster, 10 steps: {out['fit_cluster 10 steps']}")
+    return dict(rates=rates, traces=out)
+
+
 def profile_main(dev):
     """`--profile`: where the time of each fit path goes (module
     docstring)."""
@@ -1349,9 +1939,11 @@ def profile_main(dev):
         log(f"  {k:10s} {v['launches']:3d} x ({v['ms']:.4f} - "
             f"{v['bound_ms']:.4f} ms, {v['bound_by']}) = "
             f"{v['lost_ms']:.3f} ms")
+    generation = profile_generation(dev)
     log(json.dumps(dict(card=card, setup=setup, stars_per_s=rates,
                         funnel_big_stars=n_big, funnel_big_stars_per_s=big,
-                        path_shares=shares, mc_code=code, profiles=prof)))
+                        path_shares=shares, mc_code=code, profiles=prof,
+                        generation=generation)))
     return 0
 
 
@@ -1379,6 +1971,8 @@ def kernel_attrs(name, F):
     return dict(registers=r[0], local_bytes=r[1])
 
 
+# The kernels the funnel runs on phase 11's generated grid.
+GRID_FIT_KERNELS = ("screen", "gather", "fit", "mc_rng")
 # The phase whose run each kernel's launches are read from.
 KERNEL_PHASE = dict(screen=4, gather=4, fit=4, mc_rng=4, mc_fed=5,
                     fit_dense=6)
@@ -1390,9 +1984,10 @@ FIRST_STARS_PER_S = "813.8 to 1111.7 stars/s over three card runs"
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 4-7 on the CPU (plain versions)")
+                    help="rehearse phases 4-12 on the CPU (plain versions)")
     ap.add_argument("--tiny", action="store_true",
-                    help="a 4000-model grid (padded, as the full one) and 16 stars")
+                    help="a 4000-model grid (padded, as the full one), 16 "
+                         "stars, coarse grid-generation and cluster sizes")
     ap.add_argument("--profile", action="store_true",
                     help="time and profile each fit path on the card "
                          "instead of the smoke phases")
@@ -1550,6 +2145,62 @@ def main():
     if not fb["ok"]:
         raise AssertionError("the integer grid-index path was not taken")
 
+    t0 = time.time()
+    g = runs[11] = phase_grid(dev, args.tiny, screen_k, n_sel)
+    chk = g["check"]
+    log(f"phase 11 grid generation: SEDmaker.make_grid on "
+        f"{'the card' if dev.type == 'cuda' else 'the CPU'} in float64, "
+        f"{g['n_grid']} labels (tables built in {g['build_s']:.1f} s), "
+        f"{g['gen_s']:.2f} s, {g['labels_per_s']:.1f} labels/s, peak "
+        f"device memory {g['peak_gib']:.3f} GiB; valid share (grid_sel) "
+        f"{g['valid_share']:.4f}; {chk['n_sample']} seeded labels "
+        f"regenerated on the host in float64: validity and "
+        f"NaN pattern equal {chk['same_pattern']}, max |dev| of the "
+        f"finite coefficients {chk['coeff_dev']:.3g} mag and predictions "
+        f"{chk['param_dev']:.3g} (tol {GRID_TOL}); funnel on its "
+        f"{g['n_models']} valid models, {len(g['out']['model_idx'])} stars: "
+        f"{g['stars_per_s']:.1f} stars/s, true model among the draws for "
+        f"{g['recall']:.3f} of the stars, median distance bias "
+        f"{g['dist_bias']:+.4f}, p90 |bias| {g['dist_p90']:.4f}, K4's "
+        f"valid columns {g['mc_valid_share']:.4f} (active at tiles of 512 "
+        f"{g['mc_active_share']:.4f}), launches {g['launches']}; "
+        f"reported, the reference-semantics funnel on its first "
+        f"{g['n_xla']} stars against the host "
+        f"in float64: {_acc_text(g['xla']['f64'])}, against the dense "
+        f"reference engine: {_acc_text(g['xla']['dense'])}, best against "
+        f"the dense maximum {g['xla']['best_gap']:.4g} nats for the "
+        f"{g['xla']['on_list']} stars whose maximum is shortlisted, "
+        f"{g['xla']['best_gap_all']:.4g} over all  "
+        f"[{time.time() - t0:.1f} s]")
+    if not chk["ok"]:
+        raise AssertionError("the card's grid disagrees with the host's")
+
+    n_steps, n_burn = (20, 10) if args.tiny else (1000, 500)
+    for net, arrays in (("smooth_nn_arrays", smooth_nn_arrays()),
+                        ("phase 11's network (the control)", None)):
+        t0 = time.time()
+        c = phase_cluster(dev, args.tiny, n_steps, n_burn, arrays)
+        control = arrays is None
+        log(f"phase 12 cluster fit on {net}: Isochrone built in "
+            f"{c['build_s']:.1f} s, {c['n_obj']} stars (5% field); the "
+            f"likelihood at {CLUSTER_THETAS} seeded thetas against the "
+            f"host in float64, max relative dev through isochrone_loglike "
+            f"{c['dev_one']:.3g}, through fit_cluster's posterior in one "
+            f"call (groups of {c['group']}) {c['dev_batch']:.3g} (tol "
+            f"{LOGLIKE_TOL}; values {[round(v, 2) for v in c['loglikes']]},"
+            f" {c['check_s']:.1f} s); bounds {HELD_BOUNDS}, "
+            + fit_text(c, n_steps, n_burn)
+            + (" (rehearsal: not held)" if args.tiny else
+               " (must not be recovered)" if control else "")
+            + f"  [{time.time() - t0:.1f} s]")
+        if max(c["dev_one"], c["dev_batch"]) > LOGLIKE_TOL:
+            raise AssertionError("the cluster likelihood on the card "
+                                 "disagrees with the host's")
+        if not args.tiny and c["rec"]["recovered"] == control:
+            raise AssertionError(
+                "the recovery check passed the control's plateau fit"
+                if control else "fit_cluster did not recover the cluster")
+
     kernels = []
     for name, k in _native.KERNELS.items():
         entry = dict(name=name, route="cuda", source=k.source,
@@ -1572,6 +2223,9 @@ def main():
         raise AssertionError(f"no launch of {missing} on its path")
     if runs[4]["launches"]["mc_fed"] or runs[5]["launches"]["mc_rng"]:
         raise AssertionError("K4 ran in the wrong mode")
+    idle = [k for k in GRID_FIT_KERNELS if runs[11]["launches"][k] <= 0]
+    if idle:
+        raise AssertionError(f"no launch of {idle} on the generated grid")
     log(f"phase 7 every kernel ran on its path  "
         f"[{time.time() - t_all:.1f} s total]")
     log(nvidia_smi())
