@@ -24,8 +24,11 @@ generator; the foundations (`utils`, `priors`, `dustmap`, `io`); grid
 generation (`ops/interp.py`, `models`: the BC networks, the MIST track
 and isochrone interpolators, `SEDmaker.make_grid`); the samplers
 (`sampling`) and the cluster fit (`cluster.isochrone_loglike`,
-`fit_cluster`).  See ROADMAP.md for what is still to come (`los`,
-`offsets`, `pdf` next; the device mesh last).
+`fit_cluster`); the applications after a fit: line-of-sight clouds
+(`los`), photometric offsets (`offsets`), binned distance-reddening
+PDFs (`pdf`), the plots (`plotting`, matplotlib imported only to draw)
+and the instrumentation (`profiling`).  Still to come (ROADMAP.md): the
+device mesh, `fit(mesh=...)`.
 """
 
 __version__ = "0.1.0"
@@ -36,3 +39,16 @@ from .convert import from_numpy_grid  # noqa: F401
 from .dustmap import DustMap, Bayestar, uniform_profile  # noqa: F401
 from .fitting import BruteForce  # noqa: F401
 from .filters import FILTERS  # noqa: F401
+
+
+def __getattr__(name):
+    """Lazy submodule access, as `brutus_tpu`'s (keeps `import
+    brutus_tpu_torch` light)."""
+    import importlib
+    submodules = {"config", "utils", "io", "coords", "healpix", "dustmap",
+                  "priors", "fitting", "models", "ops", "los", "cluster",
+                  "offsets", "pdf", "plotting", "profiling", "sampling",
+                  "convert"}
+    if name in submodules:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -12,7 +12,9 @@ on the walkers' device and read nothing back until the chain is done.
 Only the half of the ensemble that a half-step moves is evaluated (the
 JAX sampler evaluates all walkers and discards the other half).  The
 random streams are not JAX's, so chains agree with the JAX package's as
-distributions, not draw for draw.
+distributions, not draw for draw; given JAX's random numbers
+(`_init_walkers` and `_stretch_draws` hold every draw), they follow
+JAX's chains step for step.
 
 The diagnostics (autocorrelation time, effective sample size, split
 R-hat) and the evidence estimators run on the host in numpy.
@@ -30,6 +32,23 @@ def _generator(seed, device):
     return g
 
 
+def _init_walkers(shape, g, dtype, device):
+    """Walkers uniform in `(0.02, 0.98)`, the unit cube of prior
+    transforms."""
+    return 0.02 + 0.96 * torch.rand(shape, generator=g, dtype=dtype,
+                                    device=device)
+
+
+def _stretch_draws(shape, half, g, dtype, device):
+    """The random numbers of a half-step, each of `shape` (walkers
+    last): the partner's offset in the other half, the uniform of the
+    stretch factor and the uniform of the acceptance test."""
+    j = torch.randint(0, half, shape, generator=g, device=device)
+    zu = torch.rand(shape, generator=g, dtype=dtype, device=device)
+    uu = torch.rand(shape, generator=g, dtype=dtype, device=device)
+    return j, zu, uu
+
+
 def _stretch(u, active, a, g):
     """Stretch-move proposals for the walkers `active` (a slice of the
     walker axis, the last but one of `u (..., W, ndim)`): a partner from
@@ -38,20 +57,18 @@ def _stretch(u, active, a, g):
     acceptance test."""
     *lead, W, ndim = u.shape
     half = W // 2
-    j = torch.randint(0, half, (*lead, W), generator=g, device=u.device)
+    j, zu, uu = _stretch_draws((*lead, W), half, g, u.dtype, u.device)
     idx = torch.where(torch.arange(W, device=u.device) < half, half + j, j)
     partners = torch.gather(u, -2, idx[..., None].expand(*lead, W, ndim))
-    zu = torch.rand((*lead, W), generator=g, dtype=u.dtype, device=u.device)
     z = ((a - 1.0) * zu + 1.0) ** 2 / a
     prop = partners + z[..., None] * (u - partners)
-    lnu = torch.log(torch.rand((*lead, W), generator=g, dtype=u.dtype,
-                               device=u.device))
+    lnu = torch.log(uu)
     return prop[..., active, :], z[..., active], lnu[..., active]
 
 
 def ensemble_sample(logpost, ndim, n_walkers=64, n_steps=1500,
                     stretch_a=2.0, seed=0, init=None, logpost_args=(),
-                    device=None):
+                    device=None, dtype=torch.float64):
     """A stretch-move ensemble sampler (mirrors
     `brutus_tpu.sampling.ensemble_sample`).
 
@@ -61,8 +78,9 @@ def ensemble_sample(logpost, ndim, n_walkers=64, n_steps=1500,
         other (the parallel variant of Goodman & Weare 2010).
     init : `(W, ndim)` start, else uniform in `(0.02, 0.98)^ndim` (the
         unit cube of prior transforms).
-    device : where the walkers live, in float64 (CUDA unless the caller
-        names another); `seed` seeds a generator there.
+    device, dtype : where the walkers live (CUDA unless the caller names
+        another) and their type (float64 unless given; the JAX
+        sampler's are float32); `seed` seeds a generator there.
 
     Returns a dict of device tensors `chain (n_steps, W, ndim)`,
     `logp (n_steps, W)`, `accept (n_steps, W)` bool.
@@ -73,10 +91,9 @@ def ensemble_sample(logpost, ndim, n_walkers=64, n_steps=1500,
     W, half = n_walkers, n_walkers // 2
     g = _generator(seed, dev)
     if init is None:
-        u = 0.02 + 0.96 * torch.rand((W, ndim), generator=g,
-                                     dtype=torch.float64, device=dev)
+        u = _init_walkers((W, ndim), g, dtype, dev)
     else:
-        u = torch.as_tensor(init, dtype=torch.float64, device=dev).clone()
+        u = torch.as_tensor(init, dtype=dtype, device=dev).clone()
     lp = logpost(u, *logpost_args)
     chain = torch.empty((n_steps, W, ndim), dtype=u.dtype, device=dev)
     logp = torch.empty((n_steps, W), dtype=lp.dtype, device=dev)
@@ -105,7 +122,7 @@ def default_beta_ladder(n_temps, power=5.0):
 
 def tempered_ensemble_sample(logl, ndim, betas, n_walkers=64,
                              n_steps=1500, stretch_a=2.0, seed=0,
-                             logl_args=(), device=None):
+                             logl_args=(), device=None, dtype=torch.float64):
     """One independent stretch-move ensemble per inverse temperature in
     `betas`, targeting `prior * L**beta` (mirrors
     `brutus_tpu.sampling.tempered_ensemble_sample`); the support
@@ -115,6 +132,7 @@ def tempered_ensemble_sample(logl, ndim, betas, n_walkers=64,
     logl : callable `(u (n, ndim), *logl_args) -> (n,)`, the batched
         log-likelihood over the prior unit cube.
     betas : `(K,)` ascending, 0 first and 1 last.
+    device, dtype : as in `ensemble_sample`.
 
     Returns device tensors, rung-major: `chain (K, n_steps, W, ndim)`,
     `logl (K, n_steps, W)` (raw, untempered), `accept (K, n_steps, W)`.
@@ -123,10 +141,10 @@ def tempered_ensemble_sample(logl, ndim, betas, n_walkers=64,
         raise ValueError("n_walkers must be even")
     dev = resolve_device(device)
     W, half, K = n_walkers, n_walkers // 2, len(betas)
-    beta = torch.as_tensor(np.asarray(betas, float), device=dev)[:, None]
+    beta = torch.as_tensor(np.asarray(betas, float), dtype=dtype,
+                           device=dev)[:, None]
     g = _generator(seed, dev)
-    u = 0.02 + 0.96 * torch.rand((K, W, ndim), generator=g,
-                                 dtype=torch.float64, device=dev)
+    u = _init_walkers((K, W, ndim), g, dtype, dev)
     batched = lambda x: logl(x.reshape(-1, ndim),
                              *logl_args).reshape(x.shape[:-1])
     ll = batched(u)
@@ -157,7 +175,6 @@ def evidence_from_ladder(betas, logl, n_blocks=8):
     standard error over `n_blocks` time blocks; `logz_ti`, the
     thermodynamic-integration cross-check (biased low by the ladder's
     discretisation where the integrand is convex)."""
-    from scipy.special import logsumexp
     betas = np.asarray(betas, np.float64)
     ll = np.asarray(logl, np.float64)
     K, S, W = ll.shape
@@ -168,7 +185,8 @@ def evidence_from_ladder(betas, logl, n_blocks=8):
     def ss(ll_kt):                       # (K, s, W) -> scalar
         n = ll_kt.shape[1] * ll_kt.shape[2]
         return float(sum(
-            logsumexp(dbs[k] * ll_kt[k].ravel()) - np.log(n)
+            torch.logsumexp(torch.from_numpy(dbs[k] * ll_kt[k].ravel()),
+                            0).item() - np.log(n)
             for k in range(K - 1)))
 
     logz = ss(ll)

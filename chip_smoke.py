@@ -2,7 +2,7 @@
 """Smoke run of `brutus_tpu_torch` on one NVIDIA H100.
 
     python3 chip_smoke.py               # the card run (needs one CUDA card)
-    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-12 on the CPU
+    python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-13 on the CPU
     python3 chip_smoke.py --profile     # where each fit path's time goes
     python3 chip_smoke.py --rates 2     # warm stars/s of the fused paths
 
@@ -77,9 +77,36 @@ Phases, each printing one line with its elapsed seconds:
    `RECOVERY`, outlier fraction, the MAP against the truth, posterior
    widths): the fit on `smooth_nn_arrays` must pass, the control must
    fail;
+13. the applications after a fit: 2048 lattice stars on one sightline
+   (phase 4's coordinate, 0.2-5 kpc, two clouds at distance moduli 8.5
+   and 11.0, band 2's flux divided by 1.05) fitted by the funnel
+   (in-kernel draws, Galactic and parallax priors, no dust prior)
+   inside `profiling.trace` and `annotate`, counted by
+   `profiling.Throughput`, and fitted again without the injection as
+   the control; the trace must hold the annotation and the four
+   kernels.  `LOS_clouds_loglike_samples` at `LOS_THETAS` thetas
+   against a float64 numpy evaluation (`LOS_TOL`; three kernels,
+   template and additive modes; `LOS_F32_TOL` for `fit_clouds`'s
+   float32 likelihood); `fit_clouds` with one and two clouds
+   and the evidence ladder at its defaults, timed in walker-steps/s:
+   the two-cloud evidence must beat the one-cloud one and the best MAP
+   of the ladder's chain and `RESTARTS` more put a cloud at each step
+   (`EVIDENCE_GAP`, `EVIDENCE_SIGMA`, `MAP_DM_TOL`), and the same fits
+   with the distance draws shuffled across stars must not;
+   `bin_pdfs_distred` at 750 x 300 bins from saved draws, as CDFs and
+   from regenerated draws (Nr=100), timed in stars/s, 64 stars against
+   numpy's `histogram2d` and scipy's `gaussian_filter` (`EDGE_REL`,
+   `PDF_TOL`, mass, CDF monotonicity); `photometric_offsets` (Nmc=150)
+   on both fits: band 2 must stand out (`OFFSET_MIN`) where the
+   control's bands do not (`OFFSET_CONTROL`, `OFFSET_SIGMA`); its model
+   fluxes and weights and the plotting helpers against numpy in
+   float64 (`HOST_TOL`).  `--cpu --tiny` rehearses it with 256 stars,
+   75 x 30 bins, 16 walkers, 200 steps, 6 rungs and one restart, the
+   science checks reported, not held;
 7. last, a `kernels` JSON line: each kernel's launches during the path
    that runs it (phase 4, 5 or 6; each must be > 0) and on every phase
-   that launched it, and its phase-3 deviation and times; the
+   that launched it (K2, K3, K1 and K4 must have launched in phase 13's
+   fit), and its phase-3 deviation and times; the
    registers and local bytes per thread of each (K4: of the main
    path's instance), for K1 the share of pairs moving in the polish,
    for K4 its time and bound at 16 stars.
@@ -1490,6 +1517,554 @@ def phase_cluster(dev, tiny, n_steps, n_burn, nn_arrays=None):
                 rhat=out["rhat"].tolist())
 
 
+# Phase 13: a sightline of lattice stars behind two clouds, Av = 0.2 +
+# 0.8 [mu > 8.5] + 0.7 [mu > 11.0] (distance modulus mu), with a 5%
+# zero-point error put into band 2 (its flux divided by 1.05).
+CLOUDS_DM = (8.5, 11.0)
+INJECT_BAND, INJECT = 2, 1.05
+# What phase 13 holds.  The card against the host in float64: the LOS
+# log-likelihood at `LOS_THETAS` seeded thetas (relative LOS_TOL, every
+# kernel, template and additive modes; LOS_F32_TOL for the float32
+# likelihood of `fit_clouds`'s walkers), the model fluxes, leave-one-
+# band-out weights and plotting helpers of `HOLD_STARS` stars against
+# numpy (relative HOST_TOL); the binned PDFs of `HOLD_STARS` stars against numpy's
+# `histogram2d` and scipy's `gaussian_filter` (histograms equal but for
+# draws within EDGE_REL of an edge, PDFs within PDF_TOL).  Science, with
+# controls that must fail: the two-cloud evidence beats the one-cloud
+# one by more than EVIDENCE_GAP nats and EVIDENCE_SIGMA sigma, and the
+# best two-cloud MAP puts a cloud within MAP_DM_TOL of each step of
+# `CLOUDS_DM` (the control: the same fits with each star's distance
+# draws given to another star).  The best MAP is that of the highest
+# log-likelihood among the ladder's beta=1 chain and RESTARTS chains
+# without the ladder from other seeds: from the unit cube a chain of 64
+# walkers at the defaults can settle in a mode that merges the steps,
+# and which seeds do is a matter of the random stream, the JAX
+# package's as the port's (given JAX's random numbers the port follows
+# its chain step for step, `tests/test_torch_los.py`; over the same 48
+# seeds of `tools/los_seeds.py` each finds both steps in about six of
+# ten, PERF.md §6);
+# `photometric_offsets` reads band 2 as the band farthest from 1, by more
+# than OFFSET_MIN, while on the control fit (no injection) every band
+# lies within OFFSET_CONTROL of 1, and the two band-2 readings differ by
+# more than OFFSET_SIGMA bootstrap sigma.
+LOS_THETAS = 8
+LOS_TOL, LOS_F32_TOL = 1e-9, 1e-5
+HOST_TOL = 1e-9
+HOLD_STARS = 64
+EDGE_REL = 1e-12
+PDF_TOL = 1e-6
+EVIDENCE_GAP, EVIDENCE_SIGMA = 5.0, 3.0
+MAP_DM_TOL, RESTARTS = 0.5, 4
+OFFSET_MIN, OFFSET_CONTROL, OFFSET_SIGMA = 0.03, 0.005, 3.0
+# The kernels of the funnel fit that feeds phase 13, by their names in a
+# `torch.profiler` trace.
+TRACE_NAMES = dict(screen="screen_kernel", gather="gather_kernel",
+                   fit="fit_kernel", mc_rng="mc_kernel")
+
+
+def sightline(mc, n_star, seed=13):
+    """Phase 13's catalogue: `n_star` lattice models at phase 4's
+    coordinate, distances log-uniform over 0.2-5 kpc, the two-cloud Av
+    profile plus N(0, 0.05), Rv 2.8-3.8, SNR 60 and 10% parallaxes as
+    in `stars`; `flux` carries the band-2 injection, `flux_control` is
+    the same photometry without it."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, mc.shape[0], n_star)
+    dm = rng.uniform(6.5, 13.5, n_star)
+    dist = 10 ** (dm / 5.0 - 2.0)
+    av = (0.2 + 0.8 * (dm > CLOUDS_DM[0]) + 0.7 * (dm > CLOUDS_DM[1])
+          + rng.normal(size=n_star) * 0.05).clip(0.01, None)
+    rv = rng.uniform(2.8, 3.8, n_star)
+    sed = mc[idx, :, 0] + av[:, None] * (mc[idx, :, 1]
+                                         + rv[:, None] * mc[idx, :, 2])
+    flux = 10 ** (-0.4 * sed) / dist[:, None] ** 2
+    err = flux / 60.0
+    flux = flux + rng.normal(size=flux.shape) * err
+    inj = flux.copy()
+    inj[:, INJECT_BAND] /= INJECT
+    return dict(flux=inj.astype(np.float32),
+                flux_control=flux.astype(np.float32),
+                err=err.astype(np.float32), idx=idx, dist=dist, dm=dm,
+                av=av, plx=1.0 / dist + rng.normal(size=n_star) * 0.1 / dist,
+                plxe=0.1 / dist, coords=np.tile([204.7, -19.2], (n_star, 1)))
+
+
+def traced_fit(bf, s, dev, batch, screen_k, n_sel, logdir):
+    """`fit_stars` of the sightline inside `profiling.trace` with an
+    `annotate` region and a `profiling.Throughput` counting its stars;
+    returns the fit, the meter's rate, the trace files and whether the
+    trace names the annotation and each kernel of `TRACE_NAMES` (read as
+    text: the parsed events of a CPU trace run to millions of objects)."""
+    import glob
+    from brutus_tpu_torch import profiling
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profiling.trace(logdir):
+        with profiling.annotate("phase13_fit"):
+            meter = profiling.Throughput(total=len(s["idx"]), unit="stars",
+                                         stream=None)
+            out, dt, launches = fit_stars(bf, s, dev, batch, screen_k, n_sel,
+                                          dustmap=None)
+            meter.update(len(s["idx"]))
+            rate = meter.rate
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    text = open(files[0]).read() if files else ""
+    shutil.rmtree(logdir, ignore_errors=True)
+    seen = {k: v in text for k, v in TRACE_NAMES.items()}
+    seen["annotation"] = '"phase13_fit"' in text
+    return out, dt, launches, rate, files, seen
+
+
+def los_host(theta, ds, rs, kernel="gauss", template=None, additive=False,
+             area=6.0):
+    """The cloud model's log-likelihood in float64 on the host (numpy,
+    and torch's logsumexp: scipy's fails where jax is blocked with a
+    None module), written out from the reference's definition
+    (`brutus/los.py:119-248`)."""
+    pb, s0, s = theta[:3]
+    reds, dists = theta[3::2], theta[4::2]
+    edges = np.r_[0.0, dists, 1e10]
+    sig = np.r_[s0 * area, np.full(len(dists), s * area)]
+    logw = np.empty((len(reds),) + rs.shape)
+    for c in range(len(reds)):
+        mean = reds[c] * (1.0 if template is None or c == 0
+                          else template[:, None])
+        if additive and c > 0:
+            mean = mean + reds[0]
+        z = (rs - mean) / sig[c]
+        if kernel == "gauss":
+            lw = -0.5 * z ** 2 - np.log(np.sqrt(2.0 * np.pi) * sig[c])
+        elif kernel == "lorentz":
+            lw = -np.log1p(z ** 2) - np.log(np.pi * sig[c])
+        else:
+            lw = np.where((rs >= mean - sig[c]) & (rs < mean + sig[c]),
+                          -np.log(2.0 * sig[c]), -np.inf)
+        logw[c] = np.where((ds >= edges[c]) & (ds < edges[c + 1]), lw,
+                           -np.inf)
+    ll = (torch.logsumexp(torch.from_numpy(logw), dim=(0, 2)).numpy()
+          - np.log(rs.shape[1]))
+    return float(np.logaddexp(np.log1p(-pb) + ll,
+                              np.log(pb) - np.log(area)).sum())
+
+
+def los_thetas(n, seed=14):
+    """`n` seeded two-cloud thetas `[pb, s0, s, fg, d1, r1, d2, r2]`."""
+    rng = np.random.default_rng(seed)
+    th = np.empty((n, 8))
+    th[:, 0] = rng.uniform(0.01, 0.2, n)
+    th[:, 1:3] = rng.uniform(0.01, 0.1, (n, 2))
+    th[:, [4, 6]] = np.sort(rng.uniform(6.0, 14.0, (n, 2)), axis=1)
+    th[:, [3, 5, 7]] = np.sort(rng.uniform(0.0, 2.5, (n, 3)), axis=1)
+    return th
+
+
+def los_holds(ds, rs, dev):
+    """`LOS_clouds_loglike_samples` on the card at `los_thetas` against
+    `los_host`, per mode, and the float32 likelihood of `fit_clouds`'s
+    walkers (`fit32`, the Gaussian kernel on float32 draws and thetas)
+    against `los_host` on the same rounded values: the largest relative
+    deviation of each."""
+    from brutus_tpu_torch.los import (LOS_clouds_loglike_samples,
+                                      _los_loglike_core)
+    tmpl = np.random.default_rng(15).uniform(0.5, 2.0, len(ds))
+    d, r = (np.asarray(v, np.float64)[:, :25] for v in (ds, rs))
+    modes = dict(gauss={}, tophat=dict(kernel="tophat"),
+                 lorentz=dict(kernel="lorentz"),
+                 template=dict(template=tmpl),
+                 additive=dict(additive=True))
+    out = {}
+    for name, kw in modes.items():
+        dev_max = 0.0
+        for th in los_thetas(LOS_THETAS):
+            host = los_host(th, d, r, **kw)
+            card = LOS_clouds_loglike_samples(
+                th, ds, rs, kernel=kw.get("kernel", "gauss"),
+                template_reds=kw.get("template"),
+                additive_foreground=kw.get("additive", False), device=dev)
+            dev_max = max(dev_max, abs(card - host) / abs(host))
+        out[name] = dev_max
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    d32, r32 = (np.asarray(v, np.float32)[:, :25] for v in (ds, rs))
+    dev_max = 0.0
+    for th in los_thetas(LOS_THETAS).astype(np.float32):
+        host = los_host(th.astype(np.float64), d32.astype(np.float64),
+                        r32.astype(np.float64))
+        card = _los_loglike_core(
+            f32(th[3::2])[None], f32(th[4::2])[None], f32(th[:1]),
+            f32(th[1:2]) * 6.0, f32(th[2:3]) * 6.0, f32(d32), f32(r32))
+        dev_max = max(dev_max, abs(float(card[0]) - host) / abs(host))
+    out["fit32"] = dev_max
+    return out
+
+
+def cloud_fits(ds, rs, dev, tiny):
+    """`fit_clouds` with one and with two clouds and the evidence ladder
+    (the defaults: 64 walkers, 1500 steps, 750 burn-in, 25 draws, 16
+    rungs), timed; then `RESTARTS` two-cloud chains without the ladder
+    from other seeds (one in the rehearsal).  Whether the evidence finds two clouds, and
+    whether the best two-cloud MAP of all these chains (the highest
+    log-likelihood) puts a cloud at each step."""
+    from brutus_tpu_torch.los import fit_clouds
+    kw = (dict(n_walkers=16, n_steps=200, n_burn=100, n_temps=6) if tiny
+          else dict(n_walkers=64, n_steps=1500, n_burn=750, n_temps=16))
+    fits = {}
+    for nc in (1, 2):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        f = fit_clouds(ds, rs, n_clouds=nc, evidence=True, seed=nc,
+                       device=dev, **kw)
+        f["seconds"] = time.time() - t0
+        f["walker_steps_per_s"] = (kw["n_temps"] * kw["n_walkers"]
+                                   * kw["n_steps"] / f["seconds"])
+        fits[nc] = f
+    gap = fits[2]["logz"] - fits[1]["logz"]
+    sigma = float(np.hypot(fits[1]["logz_err"], fits[2]["logz_err"]))
+    t0 = time.time()
+    maps = [(float(fits[2]["logl"].max()), fits[2]["map_theta"])]
+    plain = {k: v for k, v in kw.items() if k != "n_temps"}
+    restarts = 1 if tiny else RESTARTS
+    for seed in range(3, 3 + restarts):
+        f = fit_clouds(ds, rs, n_clouds=2, seed=seed, device=dev, **plain)
+        maps.append((float(f["logl"].max()), f["map_theta"]))
+    restart_s = time.time() - t0
+    steps = lambda m: [float(abs(m[4] - CLOUDS_DM[0])),
+                       float(abs(m[6] - CLOUDS_DM[1]))]
+    found = [bool(max(steps(m)) < MAP_DM_TOL) for _, m in maps]
+    m = max(maps, key=lambda x: x[0])[1]
+    map_off = steps(m)
+    ok = bool(gap > EVIDENCE_GAP and gap > EVIDENCE_SIGMA * sigma
+              and max(map_off) < MAP_DM_TOL)
+    return dict(fits=fits, gap=float(gap), sigma=sigma, map=m.tolist(),
+                map_off=map_off, found=found, restart_s=restart_s, ok=ok,
+                restarts=restarts, settings=kw)
+
+
+def los_text(c):
+    f1, f2 = c["fits"][1], c["fits"][2]
+    return (f"logz 1 cloud {f1['logz']:.3f} +/- {f1['logz_err']:.3f}, 2 "
+            f"clouds {f2['logz']:.3f} +/- {f2['logz_err']:.3f} (gap "
+            f"{c['gap']:.3f} nats, {c['gap'] / c['sigma']:.2f} sigma), "
+            f"{f1['walker_steps_per_s']:.0f} and "
+            f"{f2['walker_steps_per_s']:.0f} walker-steps/s "
+            f"({f1['seconds']:.1f} s, {f2['seconds']:.1f} s), acceptance "
+            f"{f2['acceptance']:.3f}; both steps found by the ladder's "
+            f"chain and {c['restarts']} more ({c['restart_s']:.1f} s): "
+            f"{c['found']}, the best MAP {[round(v, 4) for v in c['map']]} "
+            f"(clouds off by {[round(v, 4) for v in c['map_off']]}); held "
+            f"{c['ok']}")
+
+
+def pdf_holds(s, out, dev, bins, pdfs, cdfs):
+    """The binned PDFs of the first `HOLD_STARS` stars against the host:
+    numpy's `histogram2d` of the same draws (saved draws as given; the
+    regenerated mode's draws and weights as the card made them) and
+    scipy's `gaussian_filter` as the JAX function smooths; each star's
+    mass against its in-span weight; the CDFs' monotonicity."""
+    from scipy.ndimage import gaussian_filter
+    from brutus_tpu_torch import pdf as TP
+    n = HOLD_STARS
+    plx, plxe = s["plx"][:n], s["plxe"][:n]
+    res = dict(cdf_monotone=bool((np.diff(cdfs, axis=1) >= 0).all()))
+    regen = dict(coord=s["coords"][:n], Nr=100, bins=bins, parallaxes=plx,
+                 parallax_errors=plxe, device=dev)
+    data_r = tuple(out[k][:n] for k in ("scale", "av", "rv", "cov_sar"))
+    card_r = TP.bin_pdfs_distred(data_r, **regen)[0]
+    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64,
+                                  device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _, ddr, adr, _, wts = TP._regenerate(
+        gen, *(t(v) for v in data_r), 100, (0.0, 6.0), (1.0, 8.0), None,
+        t(s["coords"][:n]), t(plx), t(plxe))
+    modes = dict(
+        saved=(np.asarray(out["dist"][:n], np.float64),
+               np.asarray(out["red"][:n], np.float64), None, pdfs[:n]),
+        regenerated=(ddr.reshape(n, -1).cpu().numpy(),
+                     adr.reshape(n, -1).cpu().numpy(),
+                     wts.reshape(n, -1).cpu().numpy(), card_r))
+    nsamps = out["dist"].shape[1]
+    xe, ye = TP.bin_pdfs_distred((out["dist"][:1], out["red"][:1],
+                                  out["dred"][:1]), bins=bins,
+                                 device=dev)[1:]
+    dx, dy = xe[1] - xe[0], ye[1] - ye[0]
+    xsig = TP._x_smoothing(0.01 * (xe[-1] - xe[0]), plx, plxe,
+                           "distance_modulus") / dx
+    ysig = 0.01 * (ye[-1] - ye[0]) / dy
+    for name, (d, y, w, card) in modes.items():
+        x = 5.0 * np.log10(d) + 10.0
+        xt = TP._to_dist_type(t(d), "distance_modulus")
+        Hc = TP._histogram(xt, t(y), None if w is None else t(w), t(xe),
+                           t(ye)).cpu().numpy()
+        near = miss = 0
+        pdf_dev = mass_dev = 0.0
+        for i in range(n):
+            wi = None if w is None else w[i]
+            H = np.histogram2d(x[i], y[i], bins=(xe, ye), weights=wi)[0]
+            near += int((edge_near(x[i], xe) | edge_near(y[i], ye)).sum())
+            if np.abs(Hc[i] - H).sum() > 1e-9 * max(1.0, H.sum()):
+                miss += 1
+                continue
+            host = gaussian_filter((H / nsamps).astype(np.float32),
+                                   (xsig[i], ysig))
+            pdf_dev = max(pdf_dev, float(np.abs(card[i] - host).max()))
+            span = ((x[i] >= xe[0]) & (x[i] <= xe[-1]) & (y[i] >= ye[0])
+                    & (y[i] <= ye[-1]))
+            inspan = (span.sum() if wi is None else wi[span].sum()) / nsamps
+            mass_dev = max(mass_dev, abs(float(card[i].astype(np.float64)
+                                               .sum()) - inspan))
+        res[name] = dict(edge_draws=near, stars_differing=miss,
+                         pdf_dev=pdf_dev, mass_dev=mass_dev,
+                         ok=bool((miss == 0 or miss <= near)
+                                 and pdf_dev <= PDF_TOL and mass_dev <= 1e-5))
+    res["ok"] = bool(res["cdf_monotone"] and res["saved"]["ok"]
+                     and res["regenerated"]["ok"])
+    return res
+
+
+def edge_near(v, edges):
+    """Which values lie within `EDGE_REL` (relative) of an edge."""
+    i = np.clip(np.searchsorted(edges, v), 1, len(edges) - 1)
+    gap = np.minimum(np.abs(v - edges[i]), np.abs(v - edges[i - 1]))
+    return gap <= EDGE_REL * np.abs(v)
+
+
+def rel_dev(card, host):
+    return float(np.max(np.abs(card - host)
+                        / np.maximum(np.abs(host), 1e-300)))
+
+
+def host_lnweights(lnl):
+    """Weights normalised over the last axis from log-weights, numpy."""
+    m = lnl.max(axis=-1, keepdims=True)
+    w = np.exp(lnl - m)
+    return w / w.sum(axis=-1, keepdims=True)
+
+
+def host_chi2_logpdf(x, df):
+    """The chi-square log-density with `df` degrees of freedom at `x`
+    (-inf at x <= 0), numpy and `math.lgamma`."""
+    k = 0.5 * df
+    with np.errstate(divide="ignore", invalid="ignore"):
+        v = (k - 1.0) * np.log(x) - 0.5 * x - k * math.log(2.0) \
+            - math.lgamma(k)
+    return np.where(x > 0, v, -np.inf)
+
+
+def offsets_host(s, out, mc, n):
+    """What `offsets_holds` holds the card to, written out in numpy
+    float64 from the reference's definitions (`brutus/utils.py:
+    1162-1215, 1330-1368`, `brutus/plotting.py:1073-1116`): the draws'
+    magnitudes `c0 + Av (c1 + Rv c2)`, their fluxes over distance
+    squared and magnitudes plus 5 log10(distance); per left-out band,
+    the flux weights of `photometric_offsets` (chi-square log-density
+    of the other bands' chi2 with F - 4 degrees of freedom) and the
+    magnitude weights of the plotting helpers (NaN terms skipped, at
+    least one degree of freedom, -1e300 for a non-finite value)."""
+    idx = np.asarray(out["model_idx"][:n])
+    c = np.asarray(mc, np.float64)[idx]                  # (n, S, F, 3)
+    av, rv, dist = (np.asarray(out[k][:n], np.float64)[..., None]
+                    for k in ("red", "dred", "dist"))
+    sed = c[..., 0] + av * (c[..., 1] + rv * c[..., 2])
+    flux = 10 ** (-0.4 * sed) / dist ** 2
+    mags = sed + 5.0 * np.log10(dist)
+    phot, err = (np.asarray(s[k][:n], np.float64) for k in ("flux", "err"))
+    mo = -2.5 * np.log10(phot)
+    me = 2.5 / math.log(10.0) * err / phot
+    F = phot.shape[1]
+    wflux, wmag = [], []
+    for band in range(F):
+        keep = np.arange(F) != band
+        chi2 = (((phot[:, None, keep] - flux[..., keep])
+                 / err[:, None, keep]) ** 2).sum(-1)
+        wflux.append(host_lnweights(host_chi2_logpdf(chi2, F - 4)))
+        chi2 = np.nansum(((mo[:, None, keep] - mags[..., keep])
+                          / me[:, None, keep]) ** 2, axis=-1)
+        lnl = host_chi2_logpdf(chi2, max(F - 4, 1))
+        wmag.append(host_lnweights(np.where(np.isfinite(lnl), lnl,
+                                            -1e300)))
+    return flux, mags, np.stack(wflux), np.stack(wmag)
+
+
+def offsets_holds(s, out, mc, dev):
+    """The model fluxes and leave-one-band-out weights of
+    `photometric_offsets` for the first `HOLD_STARS` stars, and the
+    plotting helpers `_posterior_predictive_mags` and
+    `_leave_band_weights` (every band), on the card against
+    `offsets_host` in numpy float64: the largest relative deviation of
+    each."""
+    from brutus_tpu_torch import offsets as TO
+    from brutus_tpu_torch import plotting as TPL
+    n = HOLD_STARS
+    flux, mags, wflux, wmag = offsets_host(s, out, mc, n)
+    draws = [out[k][:n] for k in ("model_idx", "red", "dred", "dist")]
+    seds = TO._model_fluxes(mc, *draws, dev)
+    phot, err = (torch.as_tensor(s[k][:n], dtype=torch.float64, device=dev)
+                 for k in ("flux", "err"))
+    mask = torch.ones(phot.shape, dtype=torch.bool, device=dev)
+    card_mags = TPL._posterior_predictive_mags(mc, *draws, device=dev)
+    mo, me = TPL.magnitude(s["flux"][:n].astype(np.float64),
+                           s["err"][:n].astype(np.float64))
+    wdev = lw = 0.0
+    for band in range(phot.shape[1]):
+        w = TO._band_weights(phot, err, mask, seds, band, True)
+        wdev = max(wdev, rel_dev(w.cpu().numpy(), wflux[band]))
+        w = TPL._leave_band_weights(mo, me, np.ones(mo.shape, bool),
+                                    card_mags, band, device=dev)[1]
+        lw = max(lw, rel_dev(w, wmag[band]))
+    return dict(seds=rel_dev(seds.cpu().numpy(), flux), band_weights=wdev,
+                mags=rel_dev(card_mags, mags), leave_band=lw)
+
+
+def offsets_text(r):
+    return (f"ratios {np.round(r['ratios'], 4).tolist()} +/- "
+            f"{np.round(r['errors'], 4).tolist()} ({r['seconds']:.2f} s)")
+
+
+def phase_apps(mc, labels, dev, tiny, batch, screen_k, n_sel):
+    """Phase 13: the applications after a fit, fed by the funnel on the
+    card (K2, K3, K1, K4).  The sightline fitted twice (with the band-2
+    injection, traced, and without it); `LOS_clouds_loglike_samples`
+    against the host; `fit_clouds` with the evidence ladder and its
+    shuffled control; `bin_pdfs_distred` in its three modes against the
+    host; `photometric_offsets` on both fits; the plotting helpers."""
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.offsets import photometric_offsets
+    from brutus_tpu_torch.pdf import bin_pdfs_distred
+    r = {}
+    t0 = time.time()
+    n_star = 256 if tiny else 2048
+    s = sightline(mc, n_star)
+    bf = BruteForce(mc, labels, device=dev)
+    logdir = os.path.join("build", "phase13_trace")
+    out, dt, launches, rate, files, seen = traced_fit(
+        bf, s, dev, batch, screen_k, n_sel, logdir)
+    annotated = seen.pop("annotation")
+    r.update(n_star=n_star, launches=launches, stars_per_s=n_star / dt,
+             meter_rate=rate,
+             trace=dict(files=len(files), annotated=annotated, kernels=seen))
+    ctrl = dict(s, flux=s["flux_control"])
+    out_c = fit_stars(bf, ctrl, dev, batch, screen_k, n_sel, dustmap=None)[0]
+    r["fit_s"] = time.time() - t0
+    for o in (out, out_c):
+        if not all(np.isfinite(v).all() for v in o.values()
+                   if v.dtype.kind == "f"):
+            raise AssertionError("non-finite values in phase 13's fit")
+    dm_med = np.median(5.0 * np.log10(out["dist"]) + 10.0, axis=1)
+    r["dm_bias"] = float(np.median(dm_med - s["dm"]))
+
+    t0 = time.time()
+    ds = 5.0 * np.log10(out["dist"]) + 10.0
+    rs = out["red"]
+    r["los_dev"] = los_holds(ds, rs, dev)
+    r["los"] = cloud_fits(ds, rs, dev, tiny)
+    perm = np.random.default_rng(16).permutation(n_star)
+    r["los_control"] = cloud_fits(ds[perm], rs, dev, tiny)
+    r["los_s"] = time.time() - t0
+
+    t0 = time.time()
+    bins = (75, 30) if tiny else (750, 300)
+    kw = dict(bins=bins, parallaxes=s["plx"], parallax_errors=s["plxe"],
+              device=dev)
+    saved = (out["dist"], out["red"], out["dred"])
+    tp = {}
+    for name, call in (
+            ("saved", lambda: bin_pdfs_distred(saved, **kw)[0]),
+            ("cdf", lambda: bin_pdfs_distred(saved, cdf=True, **kw)[0]),
+            ("regenerated", lambda: bin_pdfs_distred(
+                tuple(out[k] for k in ("scale", "av", "rv", "cov_sar")),
+                coord=s["coords"], Nr=100, **kw)[0])):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.time()
+        tp[name] = call()
+        r[f"pdf_{name}_stars_per_s"] = n_star / (time.time() - t1)
+    r["pdf"] = pdf_holds(s, out, dev, bins, tp["saved"], tp["cdf"])
+    r["bins"] = bins
+    r["pdf_s"] = time.time() - t0
+    del tp
+
+    t0 = time.time()
+    mask = np.ones(s["flux"].shape, bool)
+    for name, o, flux in (("offsets", out, s["flux"]),
+                          ("offsets_control", out_c, s["flux_control"])):
+        t1 = time.time()
+        ratios, errors, nratio = photometric_offsets(
+            flux, s["err"], mask, mc, o["model_idx"], o["red"], o["dred"],
+            o["dist"], Nmc=150, verbose=False, device=dev)
+        r[name] = dict(ratios=ratios, errors=errors, nratio=nratio,
+                       seconds=time.time() - t1)
+    inj, ctl = r["offsets"], r["offsets_control"]
+    off = np.abs(inj["ratios"] - 1.0)
+    r["offsets_ok"] = bool(
+        np.argmax(off) == INJECT_BAND and off[INJECT_BAND] > OFFSET_MIN
+        and np.abs(ctl["ratios"] - 1.0).max() < OFFSET_CONTROL
+        and abs(inj["ratios"][INJECT_BAND] - ctl["ratios"][INJECT_BAND])
+        > OFFSET_SIGMA * np.hypot(inj["errors"][INJECT_BAND],
+                                  ctl["errors"][INJECT_BAND]))
+    r["host"] = offsets_holds(s, out, mc, dev)
+    r["offsets_s"] = time.time() - t0
+    return r
+
+
+def report_apps(a, tiny, t0):
+    """Phase 13's line, and its checks (the science ones held at full
+    size only)."""
+    los, ctl = a["los"], a["los_control"]
+    held = not tiny
+    log(f"phase 13 applications on a sightline of {a['n_star']} stars, "
+        f"fed by the funnel (in-kernel draws, Galactic and parallax "
+        f"priors, no dust prior): fit inside profiling.trace "
+        f"{a['stars_per_s']:.1f} stars/s, Throughput {a['meter_rate']:.1f} "
+        f"stars/s, trace files {a['trace']['files']}, annotation "
+        f"{a['trace']['annotated']}, kernels in the trace "
+        f"{a['trace']['kernels']}, median distance-modulus bias "
+        f"{a['dm_bias']:+.4f}, launches {a['launches']}, two fits "
+        f"{a['fit_s']:.1f} s; LOS likelihood against the host at "
+        f"{LOS_THETAS} thetas, max relative dev "
+        f"{ {k: float(f'{v:.3g}') for k, v in a['los_dev'].items()} } (tol "
+        f"{LOS_TOL}, fit32 {LOS_F32_TOL}); fit_clouds {los['settings']}: {los_text(los)}; "
+        f"control (distance draws shuffled across stars, must fail): "
+        f"{los_text(ctl)} ({a['los_s']:.1f} s); bin_pdfs_distred at bins "
+        f"{a['bins'][0]}x{a['bins'][1]}: "
+        f"saved draws {a['pdf_saved_stars_per_s']:.1f} stars/s, CDF "
+        f"{a['pdf_cdf_stars_per_s']:.1f}, regenerated (Nr=100) "
+        f"{a['pdf_regenerated_stars_per_s']:.1f}; {HOLD_STARS} stars "
+        f"against numpy/scipy: {a['pdf']} (edge {EDGE_REL}, PDF tol "
+        f"{PDF_TOL}; {a['pdf_s']:.1f} s); photometric_offsets, band "
+        f"{INJECT_BAND} divided by {INJECT}: {offsets_text(a['offsets'])}; "
+        f"control: {offsets_text(a['offsets_control'])}; held (band "
+        f"{INJECT_BAND} farthest, off by > {OFFSET_MIN}, control within "
+        f"{OFFSET_CONTROL}, apart by > {OFFSET_SIGMA} sigma) "
+        f"{a['offsets_ok']}; {HOLD_STARS} stars against the host in "
+        f"float64, max relative dev {a['host']} (tol {HOST_TOL}; "
+        f"{a['offsets_s']:.1f} s)"
+        + ("" if held else " (rehearsal: science checks not held)")
+        + f"  [{time.time() - t0:.1f} s]")
+    f32 = a["los_dev"]["fit32"]
+    if (max(v for k, v in a["los_dev"].items() if k != "fit32") > LOS_TOL
+            or f32 > LOS_F32_TOL):
+        raise AssertionError("the LOS likelihood on the card disagrees "
+                             "with the host's")
+    if max(a["host"].values()) > HOST_TOL:
+        raise AssertionError("the offsets or plotting helpers on the card "
+                             "disagree with the host's")
+    if not a["pdf"]["ok"]:
+        raise AssertionError("the binned PDFs disagree with numpy/scipy")
+    if not (a["trace"]["files"] == 1 and a["trace"]["annotated"]):
+        raise AssertionError("the trace of phase 13's fit is missing or "
+                             "lacks its annotation")
+    if not abs(a["meter_rate"] / a["stars_per_s"] - 1.0) < 0.1:
+        raise AssertionError("Throughput's rate is not the fit's stars/s")
+    if held:
+        if not (los["ok"] and not ctl["ok"]):
+            raise AssertionError(
+                "the evidence or the MAP missed the clouds" if not los["ok"]
+                else "the shuffled control passed the cloud check")
+        if not a["offsets_ok"]:
+            raise AssertionError("photometric_offsets did not single out "
+                                 "the injected band against its control")
+
+
 # --profile: the fit paths, their settings and the kernels each runs,
 # with their bounds at that path's shapes (750,080 padded models,
 # 8 bands; funnel batches of 128 with 48 blocks of 256 per star,
@@ -1971,8 +2546,8 @@ def kernel_attrs(name, F):
     return dict(registers=r[0], local_bytes=r[1])
 
 
-# The kernels the funnel runs on phase 11's generated grid.
-GRID_FIT_KERNELS = ("screen", "gather", "fit", "mc_rng")
+# The kernels the funnel runs (phase 11's generated grid, phase 13).
+FUNNEL_KERNELS = ("screen", "gather", "fit", "mc_rng")
 # The phase whose run each kernel's launches are read from.
 KERNEL_PHASE = dict(screen=4, gather=4, fit=4, mc_rng=4, mc_fed=5,
                     fit_dense=6)
@@ -1984,7 +2559,7 @@ FIRST_STARS_PER_S = "813.8 to 1111.7 stars/s over three card runs"
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cpu", action="store_true",
-                    help="rehearse phases 4-12 on the CPU (plain versions)")
+                    help="rehearse phases 4-13 on the CPU (plain versions)")
     ap.add_argument("--tiny", action="store_true",
                     help="a 4000-model grid (padded, as the full one), 16 "
                          "stars, coarse grid-generation and cluster sizes")
@@ -1998,6 +2573,10 @@ def main():
     t_all = time.time()
     if args.cpu:
         dev = torch.device("cpu")
+        # The rehearsal's tensors are small: on 8 cores all threads
+        # took 28 s against two threads' 47 s when idle, and 579 s
+        # against 327 s beside five other multi-threaded jobs.
+        torch.set_num_threads(min(2, torch.get_num_threads()))
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device (use --cpu --tiny to "
@@ -2201,6 +2780,10 @@ def main():
                 "the recovery check passed the control's plateau fit"
                 if control else "fit_cluster did not recover the cluster")
 
+    t0 = time.time()
+    runs[13] = phase_apps(mc, labels, dev, args.tiny, 128, screen_k, n_sel)
+    report_apps(runs[13], args.tiny, t0)
+
     kernels = []
     for name, k in _native.KERNELS.items():
         entry = dict(name=name, route="cuda", source=k.source,
@@ -2223,9 +2806,14 @@ def main():
         raise AssertionError(f"no launch of {missing} on its path")
     if runs[4]["launches"]["mc_fed"] or runs[5]["launches"]["mc_rng"]:
         raise AssertionError("K4 ran in the wrong mode")
-    idle = [k for k in GRID_FIT_KERNELS if runs[11]["launches"][k] <= 0]
+    idle = [k for k in FUNNEL_KERNELS if runs[11]["launches"][k] <= 0]
     if idle:
         raise AssertionError(f"no launch of {idle} on the generated grid")
+    idle = [k for k in FUNNEL_KERNELS if runs[13]["launches"][k] <= 0
+            or not runs[13]["trace"]["kernels"][k]]
+    if idle:
+        raise AssertionError(f"no launch of {idle} in phase 13's fit, or "
+                             f"none in its trace")
     log(f"phase 7 every kernel ran on its path  "
         f"[{time.time() - t_all:.1f} s total]")
     log(nvidia_smi())
