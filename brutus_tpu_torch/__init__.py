@@ -13,7 +13,10 @@ It imports torch, numpy and scipy only (h5py where a file is read or
 written) and nothing from `brutus_tpu`.  Entry points run on CUDA unless
 the caller passes `device="cpu"`.
 
-Ported so far: `BruteForce.fit` on one device, with all four engines:
+Ported: `BruteForce.fit` with all four engines, on one device or on a
+device mesh (`parallel`: `initialize`, `make_mesh`, the shardings,
+`shard_grid`; `fit(mesh=...)` on `torch.distributed`, NCCL between
+cards, gloo on the CPU):
 the funnel (screen -> block top-k -> slab gather -> shortlist fit ->
 select stage -> MC integration -> resampling), the dense engine (fit of
 every grid model -> `lnpost_grid`), and the reference-semantics funnel
@@ -27,8 +30,10 @@ and isochrone interpolators, `SEDmaker.make_grid`); the samplers
 `fit_cluster`); the applications after a fit: line-of-sight clouds
 (`los`), photometric offsets (`offsets`), binned distance-reddening
 PDFs (`pdf`), the plots (`plotting`, matplotlib imported only to draw)
-and the instrumentation (`profiling`).  Still to come (ROADMAP.md): the
-device mesh, `fit(mesh=...)`.
+and the instrumentation (`profiling`); the functional API
+(`fitting.loglike`, `fitting.lnpost`).  Every module and every `fit`
+keyword of `brutus_tpu` has its counterpart; `import brutus_tpu_torch`
+creates no process group and touches no CUDA device.
 """
 
 __version__ = "0.1.0"
@@ -48,7 +53,7 @@ def __getattr__(name):
     submodules = {"config", "utils", "io", "coords", "healpix", "dustmap",
                   "priors", "fitting", "models", "ops", "los", "cluster",
                   "offsets", "pdf", "plotting", "profiling", "sampling",
-                  "convert"}
+                  "convert", "parallel"}
     if name in submodules:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,6 +20,15 @@ grid.
   `(M, F, 3)` coefficients and `(M,)` grid rows, unpadded, in the
   grid's dtype.
 
+Sharded over a mesh's `model` axis (`n_shards`, `shard`), the funnel's
+and the reference engine's tables are this shard's contiguous slice of
+the grid, padded first so that the shards are equal (the funnel's to a
+multiple of `tile * n_shards`, as `prepare_screen(n_shards=)` and
+`prepare_screen_xla(n_shards=)` pad; the reference engine's as
+`brutus_tpu.parallel.shard_grid` pads); only that slice is uploaded,
+so no rank holds the whole grid on its device.  `n_real` stays the
+grid's real model count.
+
 The grid-generation objects from the arrays of the JAX package's own
 (as numpy), so that both packages compute from identical tables:
 `nn_from_numpy` (`FastNN.params`), `tracks_from_numpy`
@@ -82,6 +91,8 @@ class GridTables:
     n_real: int
     n_filt: int
     aux_names: tuple
+    # (3F,) coefficient rows of the last real model, on every shard
+    last: torch.Tensor = None
 
 
 def _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels):
@@ -98,15 +109,24 @@ def _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels):
     return aux
 
 
+def _shard(n, n_shards, shard):
+    """Columns of shard `shard` of `n_shards` equal parts of `n`."""
+    m = n // n_shards
+    return slice(shard * m, (shard + 1) * m)
+
+
 def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
-                    lnprior=None, apply_dlabels=True, tile=512):
+                    lnprior=None, apply_dlabels=True, tile=512, n_shards=1,
+                    shard=0):
     """The funnel's device tables for `models (M, F, 3)` and its labels
-    (`lnprior`, `feh`, `loga` rows as `_aux_rows` gives them)."""
+    (`lnprior`, `feh`, `loga` rows as `_aux_rows` gives them); with
+    `n_shards`, shard `shard`'s slice of them."""
     dev = resolve_device(device)
     mc = np.asarray(models, np.float32)
     M, F, _ = mc.shape
     aux = _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels)
-    Mp = -(-M // tile) * tile
+    q = tile * n_shards
+    Mp = -(-M // q) * q
     C = 3 * F + len(aux)
     table = np.zeros((C, Mp), np.float32)
     table[:3 * F, :M] = mc.transpose(2, 1, 0).reshape(3 * F, M)
@@ -114,9 +134,10 @@ def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
         table[3 * F + i, :M] = v
     maskrow = np.zeros(Mp, np.float32)
     maskrow[M:] = -1e30
-    return GridTables(torch.from_numpy(table).to(dev),
-                      torch.from_numpy(maskrow).to(dev), M, F,
-                      tuple(aux))
+    part = _shard(Mp, n_shards, shard)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return GridTables(up(table[:, part]), up(maskrow[part]), M, F,
+                      tuple(aux), up(table[:3 * F, M - 1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,22 +171,33 @@ def dense_tables(models, models_labels, labels_mask=None, device=None,
 
 
 def reference_tables(models, models_labels, labels_mask=None, device=None,
-                     lnprior=None, apply_dlabels=True):
+                     lnprior=None, apply_dlabels=True, n_shards=1, shard=0):
     """The dense reference engine's tables: the `(M, F, 3)` coefficients
     as given, unpadded and in their dtype (`optimize.loglike_grid`
     reads them as they are), and the grid rows in the same dtype
-    (`brutus_tpu.BruteForce.fit`, fitting.py:959-964)."""
+    (`brutus_tpu.BruteForce.fit`, fitting.py:959-964).  With
+    `n_shards`, shard `shard`'s slice, padded as the JAX package pads a
+    sharded grid (fitting.py:940-953): copies of the last model 60 mag
+    fainter, whose grid prior is -1e30, and the label rows' last value
+    repeated."""
+    from .parallel.mesh import pad_grid, pad_to_multiple
     dev = resolve_device(device)
     mc = np.asarray(models)
+    M = len(mc)
     dt = mc.dtype if mc.dtype in (np.float32, np.float64) else np.float64
     if lnprior is None:
         lnprior = default_grid_lnprior(models_labels, labels_mask)
-    row = lambda v: torch.from_numpy(np.asarray(v, dt)).to(dev)
+    mc = pad_grid(np.asarray(mc, dt), n_shards)
+    part = _shard(len(mc), n_shards, shard)
+    row = lambda v: torch.from_numpy(np.ascontiguousarray(
+        pad_to_multiple(np.asarray(v, dt), n_shards)[0][part])).to(dev)
     names = models_labels.dtype.names
     lab = lambda k: (row(models_labels[k]) if apply_dlabels and k in names
                      else None)
-    return DenseTables(torch.from_numpy(np.asarray(mc, dt)).to(dev),
-                       row(lnprior), lab("feh"), lab("loga"), len(mc))
+    lnprior = np.asarray(lnprior, dt)
+    lnprior = np.concatenate([lnprior, np.full(len(mc) - M, -1e30, dt)])
+    return DenseTables(torch.from_numpy(np.ascontiguousarray(mc[part])).to(
+        dev), row(lnprior), lab("feh"), lab("loga"), M)
 
 
 def nn_from_numpy(filters, params, device=None):

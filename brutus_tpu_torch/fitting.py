@@ -23,10 +23,28 @@ resolves them on one device (`fitting.py:749-972`):
 
 The JAX package picks `"xla"` when `engine` is None off the TPU; the
 port picks `"fused"` on every device, its kernels being its accelerator
-path.  Custom prior callables take `lnpost_grid` on every engine, since
-K4 hard-codes the built-in priors.  `ltol`, `ltol_subthresh` and
+path, except on a mesh whose `model` axis is over 1 without the funnel,
+where it picks `"xla"` as the JAX package's TPU rule does.  Custom
+prior callables take `lnpost_grid` on every engine, since K4 hard-codes
+the built-in priors.  `ltol`, `ltol_subthresh` and
 `mag_direct_init` steer the reference-semantics engines only: the fit
 kernel runs fixed budgets from its direct seed, as in the JAX package.
+
+On a device mesh (`fit(mesh=...)`, `parallel.make_mesh`), every rank
+calls `fit` with the same inputs (SPMD) and the engines resolve as the
+JAX package's do on a mesh (`fitting.py:749-957`): with a `model` axis
+over 1, the funnel, fused or reference-semantics, screens each rank's
+slice of the grid and merges the shortlists over the axis
+(`ops/funnel.py`, `ops/screen_xla.py`), and the dense reference engine
+runs on each rank's slice with its per-star reductions merged over the
+axis (`ops/optimize.py`, `ops/posterior.py`); the dense fused engine
+needs the whole grid on each rank, so it refuses such a mesh.  Over the
+`data` axis each rank takes its contiguous share of every batch (the
+last batch padded with copies of its last row, as the JAX package pads
+it) under the rows' global indices, so each star draws what it draws
+alone, and the packed results are all-gathered over the axis: every
+rank returns the whole result, and only the mesh's first rank writes
+`save_file`.  `scan_batches` is ignored there, as in the JAX package.
 
 Batches stream: each batch's (or, with `scan_batches=N`, each group of
 N batches') outputs are packed into one float32 and one int32 matrix on
@@ -61,22 +79,58 @@ from .ops.optimize import highest_precision, loglike_grid
 from .ops.posterior import (lnpost_batch, lnpost_grid, draw_noise,
                             selection_size)
 from .ops.screen_xla import loglike_grid_screened_xla
+from .parallel.mesh import all_gather, all_reduce, group_size
 from .utils import magnitude, resolve_device
 
 # Diagnostics of the selection, fetched only with `return_sel`.
 SEL_KEYS = ("sel_idx", "lnp_sel", "valid_sel")
 
+# The JAX package's functional API (`brutus_tpu.fitting.loglike`,
+# `lnpost`; reference `brutus/fitting.py`'s `loglike` and `lnpost`).
+loglike = loglike_grid
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to brutus_tpu_torch yet (ROADMAP Queue 1 "
-        f"item {item})")
+
+def lnpost(seed, results, lnprior_grid, coord, parallax=math.nan,
+           parallax_err=math.nan, feh=None, loga=None, dust_profile=None,
+           global_idx=None, cfg=PosteriorConfig(), gal_cfg=GalPriorConfig(),
+           dust_cfg=DustPriorConfig(), apply_av_prior=True, lngalprior=None,
+           lndustprior=None, row=0):
+    """Posterior weights and `(dist, Av, Rv)` draws for ONE star (mirrors
+    `brutus_tpu.fitting.lnpost`, `ops/posterior.py:453`, which takes a
+    PRNG key where this takes `seed`): `results` is `loglike`'s dict
+    for the star (`(M,)` fields), `lnprior_grid`, `feh`, `loga` `(M,)`
+    grid rows, `coord` its `(l, b)`, `dust_profile` `(av_dist, av_mean,
+    av_std)` of its sightline.  Its random numbers are the Philox stream
+    of `(seed, row)` (`posterior.draw_noise`), as `fit` draws row `row`'s.
+    Returns `lnpost_grid`'s fields without the star axis."""
+    lnl = torch.as_tensor(results["lnlike"])
+    dev = lnl.device
+    one = lambda x: torch.as_tensor(x, device=dev)[None]
+    batch = {k: one(results[k]) for k in ("lnlike", "chi2", "scale", "av",
+                                          "rv", "ndim")}
+    batch["icov_parts"] = tuple(one(p) for p in results["icov_parts"])
+    M = lnl.shape[0]
+    noise = draw_noise(seed, torch.tensor([row]), selection_size(cfg, M),
+                       cfg, dev, grid=True)
+    f32 = lambda x: one(torch.as_tensor(x, dtype=torch.float32))
+    if dust_profile is not None:
+        av_dist, av_mean, av_std = dust_profile
+        dust_profile = (torch.as_tensor(av_dist, device=dev), one(av_mean),
+                        one(av_std))
+    out = lnpost_grid(batch, lnprior_grid, f32(coord), noise,
+                      parallax=f32(parallax), parallax_err=f32(parallax_err),
+                      feh=feh, loga=loga, dust_profile=dust_profile,
+                      global_idx=None if global_idx is None
+                      else one(global_idx), cfg=cfg, gal_cfg=gal_cfg,
+                      dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
+                      lngalprior=lngalprior, lndustprior=lndustprior)
+    return {k: v[0] for k, v in out.items()}
 
 
 def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                  dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
                  apply_av_prior, tile, lngalprior=None, lndustprior=None,
-                 ext_at=None):
+                 ext_at=None, model_group=None):
     """One batch through the funnel: likelihood, then posterior (K4, or
     `lnpost_grid` on the shortlists for custom prior callables, as
     `posterior.py:806-843` routes them).  `ext_at(gidx)` gives the
@@ -86,7 +140,7 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
         flux, err, mask, tables.table, tables.maskrow, tables.n_real,
         tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
         tile=tile, screen_k=fit_cfg.screen_k,
-        screen_block=fit_cfg.screen_block)
+        screen_block=fit_cfg.screen_block, model_group=model_group)
     pack, names, gidx = res["pack"], res["names"], res["global_idx"]
     if ext_at is not None:
         pack = pack.clone()
@@ -116,7 +170,7 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
 def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                 dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
                 apply_av_prior, tile, lngalprior=None, lndustprior=None,
-                ext_at=None):
+                ext_at=None, model_group=None):
     """One batch through the dense engine (`brutus_tpu.BruteForce.
     _build_step`, engine "fused" without the funnel): K1 over the whole
     grid, then `lnpost_grid`; the external prior is added over the
@@ -139,7 +193,7 @@ def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
 def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
                      coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
                      dust_cfg, apply_av_prior, tile, lngalprior=None,
-                     lndustprior=None, ext_at=None):
+                     lndustprior=None, ext_at=None, model_group=None):
     """One batch through the reference-semantics funnel
     (`brutus_tpu.fitting._screened_step_xla`): K2, K3, the convergence
     loops on the shortlists, then `lnpost_grid` on them."""
@@ -147,7 +201,8 @@ def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
         flux, err, mask, tables.table, tables.maskrow, tables.n_real,
         tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
         tile=tile, screen_k=fit_cfg.screen_k,
-        screen_block=fit_cfg.screen_block)
+        screen_block=fit_cfg.screen_block, last=tables.last,
+        model_group=model_group)
     gidx, aux = res.pop("global_idx"), res.pop("aux")
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(gidx)
@@ -165,17 +220,19 @@ def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
 def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
                     coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
                     dust_cfg, apply_av_prior, tile, lngalprior=None,
-                    lndustprior=None, ext_at=None):
+                    lndustprior=None, ext_at=None, model_group=None):
     """One batch through the dense reference engine (`brutus_tpu.
     BruteForce._build_step`, engine "xla"): `loglike_grid` over the
-    whole grid in its dtype, then `lnpost_grid`."""
+    whole grid in its dtype, then `lnpost_grid`; on a `model_group`,
+    over this rank's slice of the grid, merged over the group."""
     res = loglike_grid(flux, err, mask, tables.coeffs, parallax=plx,
-                       parallax_err=plx_err, cfg=fit_cfg)
+                       parallax_err=plx_err, cfg=fit_cfg,
+                       model_group=model_group)
     res.pop("n_iter")
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(None).to(
             res["lnlike"].dtype)
-    M = res["lnlike"].shape[1]
+    M = res["lnlike"].shape[1] * group_size(model_group)
     noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        tables.coeffs.device, grid=True)
     return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
@@ -183,19 +240,21 @@ def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
                        loga=tables.loga, dust_profile=dust_profile,
                        cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
                        apply_av_prior=apply_av_prior,
-                       lngalprior=lngalprior, lndustprior=lndustprior)
+                       lngalprior=lngalprior, lndustprior=lndustprior,
+                       model_group=model_group)
 
 
 class _ExternalPrior:
     """The `lnprior_ext` Gaussian label priors (`fitting.py:717-740`),
     built per batch on the device from each star's `(mean, std)` per
     label: `at(lo, hi, cols)` is the `(hi - lo, n)` float32 log-prior of
-    stars `lo..hi` at the grid models `cols` ((B, n) indices, or None
-    for every column of a grid of `n_cols`, zero beyond the real
-    models).  A star whose mean is not finite or whose std is not
-    positive gets none."""
+    stars `lo..hi` (rows past the data repeat its last, as a mesh pads
+    its last batch) at the grid models `cols` ((B, n) indices, or None
+    for the `n_cols` columns from `first` of the (padded) grid, zero
+    beyond the real models).  A star whose mean is not finite or whose
+    std is not positive gets none."""
 
-    def __init__(self, lnprior_ext, models_labels, n_cols, device):
+    def __init__(self, lnprior_ext, models_labels, n_cols, device, first=0):
         names = models_labels.dtype.names
         for k in lnprior_ext:
             if k not in names:
@@ -210,22 +269,23 @@ class _ExternalPrior:
                 torch.as_tensor(pars[:, 0], **f64),
                 torch.as_tensor(pars[:, 1], **f64)))
         self.n_cols = n_cols
+        self.first = first
         self.device = device
 
     def at(self, lo, hi, cols):
         total = None
         for lab, mean, std in self.terms:
-            m, s = mean[lo:hi, None], std[lo:hi, None]
+            rows = torch.arange(lo, hi, device=mean.device).clamp(
+                max=mean.shape[0] - 1)
+            m, s = mean[rows, None], std[rows, None]
             ok = torch.isfinite(m) & (s > 0)
             safe = torch.where(ok, s, torch.ones_like(s))
             if cols is None:
                 M = lab.shape[0]
-                x = torch.zeros(self.n_cols, dtype=lab.dtype,
-                                device=lab.device)
-                x[:M] = lab
-                x = x[None]
-                ok = ok & (torch.arange(self.n_cols, device=lab.device)
-                           < M)
+                c = torch.arange(self.first, self.first + self.n_cols,
+                                 device=lab.device)
+                x = lab[c.clamp(max=M - 1)][None]
+                ok = ok & (c < M)
             else:
                 # padding models of the last slab lie past the grid:
                 # clamped, as the JAX package's gather clamps (they are
@@ -409,8 +469,10 @@ class BruteForce:
         """Fit every star against the grid and write the results file.
 
         Same arguments, defaults and output schema as
-        `brutus_tpu.BruteForce.fit` on one device (module docstring for
-        the engines).  Custom `lngalprior` / `lndustprior` callables
+        `brutus_tpu.BruteForce.fit` (module docstring for the engines
+        and for `mesh`, a `parallel.make_mesh` mesh that every rank
+        passes with the same inputs; its ranks run on their mesh
+        devices).  Custom `lngalprior` / `lndustprior` callables
         follow the JAX package's per-star contract on torch tensors (see
         `ops.posterior.lnpost_grid`).  `lnprior_ext` maps model labels
         to per-star `(n_data, 2)` Gaussian `(mean, std)` priors added to
@@ -427,8 +489,6 @@ class BruteForce:
         signature; results always stream batch by batch.
         `screen_select="approx"` selects exactly.
         """
-        if mesh is not None:
-            raise _not_ported("a device mesh", 5)
         if engine not in (None, "fused", "xla"):
             raise ValueError(f"engine={engine!r}: expected 'fused' or "
                              "'xla'")
@@ -463,8 +523,31 @@ class BruteForce:
                                    n_sel_max=min(n_sel_max, self.NMODEL))
         gal_cfg = lngalprior_cfg or GalPriorConfig()
         dust_cfg = dust_cfg or DustPriorConfig()
-        dev = self.device
         f32 = torch.float32
+
+        # engine resolution on a mesh (`fitting.py:751-775`)
+        n_dax, model_ax = ((mesh.shape["data"], mesh.shape["model"])
+                           if mesh is not None else (1, 1))
+        use_screen = bool(fit_cfg.screen_k) and \
+            fit_cfg.screen_k < self.NMODEL
+        if engine is None:
+            engine = "fused" if model_ax == 1 or use_screen else "xla"
+        if engine == "fused" and model_ax > 1 and not use_screen:
+            raise ValueError(
+                "engine='fused' with a model>1 mesh requires the funnel "
+                "(screen_k < NMODEL): the dense fused kernel replicates the "
+                "grid per device.  Use screen_k or engine='xla' for dense "
+                "grid sharding.")
+        if model_ax > 1 and use_screen and lnprior_ext is not None:
+            raise NotImplementedError(
+                "lnprior_ext with a model-sharded funnel mesh")
+        if mesh is not None and batch_size % n_dax != 0:
+            raise ValueError("batch_size must be divisible by the mesh "
+                             "'data' axis size")
+        dev = self.device if mesh is None else mesh.device
+        model_group = mesh.get_group("model") if model_ax > 1 else None
+        data_group = mesh.get_group("data") if n_dax > 1 else None
+        shard = mesh.coords[1] if mesh is not None else 0
 
         if dustmap is None and dustfile is not None:
             dustmap = Bayestar(dustfile)
@@ -477,9 +560,6 @@ class BruteForce:
                 dd, np.atleast_2d(dm), np.atleast_2d(ds), n=NL_PAD)
             dust_dist = torch.as_tensor(dd, dtype=f32, device=dev)
 
-        use_screen = bool(fit_cfg.screen_k) and \
-            fit_cfg.screen_k < self.NMODEL
-        engine = engine or "fused"
         build, step = {
             ("fused", True): (from_numpy_grid, _funnel_step),
             ("fused", False): (dense_tables, _dense_step),
@@ -487,32 +567,46 @@ class BruteForce:
             ("xla", False): (reference_tables, _xla_dense_step),
         }[engine, use_screen]
         kw = {} if build is reference_tables else dict(tile=tile)
+        if model_ax > 1:
+            kw.update(n_shards=model_ax, shard=shard)
         tables = build(self.models, self.models_labels, self.labels_mask,
                        device=dev, lnprior=lnprior,
                        apply_dlabels=apply_dlabels, **kw)
         ext = None
         if lnprior_ext is not None:
-            n_cols = (tables.coeffs.shape[-1] if step is _dense_step
-                      else self.NMODEL)
+            n_cols, first = self.NMODEL, 0
+            if step is _dense_step:
+                n_cols = tables.coeffs.shape[-1]
+            elif step is _xla_dense_step:     # this rank's columns
+                n_cols = tables.coeffs.shape[0]
+                first = shard * n_cols
             ext = _ExternalPrior(lnprior_ext, self.models_labels, n_cols,
-                                 dev)
+                                 dev, first)
         # The dense reference engine reads the data in the grid's dtype.
         data_dt = (tables.coeffs.dtype if step is _xla_dense_step
                    else f32)
         # Funnel engines group `scan_batches` batches per launch sequence
-        # and copy-back (`fitting.py:984-990`).
+        # and copy-back (`fitting.py:984-990`), on one device.
         n_scan = (max(1, int(scan_batches))
-                  if step in (_funnel_step, _xla_funnel_step) else 1)
+                  if step in (_funnel_step, _xla_funnel_step)
+                  and mesh is None else 1)
         chunk = batch_size * n_scan
+        # a data rank's share of each batch
+        share = batch_size // n_dax
         skip = () if return_sel else SEL_KEYS
+        first_rank = mesh is None or mesh.first
+        verbose = verbose and first_rank
 
         writer = None
-        if save_file is not None:
+        if save_file is not None and first_rank:
             writer = ResultsWriter(save_file, n_data, Ndraws,
                                    labels=data_labels,
                                    save_dar_draws=save_dar_draws,
                                    resume=resume)
         start_row = writer.cursor if (writer is not None and resume) else 0
+        if mesh is not None and resume:     # the first rank's cursor
+            start_row = int(all_reduce(torch.tensor(
+                [start_row], device=dev), "sum", mesh.world)[0])
         fetcher = _Fetcher(dev)
 
         def launch(lo, hi):
@@ -523,9 +617,17 @@ class BruteForce:
                 return _launch(lo, hi)
 
         def _launch(lo, hi):
+            # This rank's rows lo..hi, batch by batch; on a mesh, its
+            # share of the batch at lo, past the data copies of the last
+            # row (`fitting.py:1008-1017`).
+            r0, r1, per = lo, hi, batch_size
+            if mesh is not None:
+                r0 = lo + mesh.coords[0] * share
+                r1, per = r0 + share, share
+            take = np.minimum(np.arange(r0, r1), n_data - 1)
             # pageable uploads: pinning each small input per call cost
             # more than it overlapped (PERF.md, the streaming loop)
-            up = lambda x, dt=f32: torch.as_tensor(x[lo:hi], dtype=dt,
+            up = lambda x, dt=f32: torch.as_tensor(x[take], dtype=dt,
                                                    device=dev)
             g = dict(flux=up(data, data_dt), err=up(data_err, data_dt),
                      mask=up(data_mask, torch.bool), plx=up(parallax),
@@ -533,24 +635,28 @@ class BruteForce:
             if apply_av_prior:
                 g["dm"], g["ds"] = up(dust_mean), up(dust_std)
             packs = []
-            for blo in range(lo, hi, batch_size):
-                bhi = min(blo + batch_size, hi)
-                b = slice(blo - lo, bhi - lo)
+            for blo in range(r0, r1, per):
+                bhi = min(blo + per, r1)
+                b = slice(blo - r0, bhi - r0)
+                rows = torch.arange(blo, bhi, device=dev)
                 dp = ((dust_dist, g["dm"][b], g["ds"][b])
                       if apply_av_prior else None)
                 ext_at = (None if ext is None else
                           (lambda cols, a=blo, z=bhi: ext.at(a, z, cols)))
-                out = step(tables, seed, torch.arange(blo, bhi, device=dev),
+                out = step(tables, seed, rows,
                            g["flux"][b], g["err"][b], g["mask"][b],
                            g["plx"][b], g["plxe"][b], g["coord"][b], dp,
                            fit_cfg, post_cfg, gal_cfg, dust_cfg,
                            apply_av_prior, tile, lngalprior, lndustprior,
-                           ext_at=ext_at)
+                           ext_at=ext_at, model_group=model_group)
                 packs.append(_pack_outputs(out, skip))
             layout = packs[0][1]
             mats = [None if packs[0][0][i] is None
                     else torch.cat([p[0][i] for p in packs])
                     for i in range(2)]
+            # every rank gets the whole batch, in row order
+            mats = [None if m is None else
+                    all_gather(m, data_group, dim=0)[:hi - lo] for m in mats]
             return (lo, hi - lo, layout) + fetcher.start(mats)
 
         def finish(item):
@@ -622,4 +728,4 @@ class BruteForce:
                        out["dred"][i], out["logwt"][i])
 
 
-__all__ = ["BruteForce", "default_grid_lnprior"]
+__all__ = ["BruteForce", "default_grid_lnprior", "loglike", "lnpost"]

@@ -80,10 +80,12 @@ def ang2pix_nest(nside, theta, phi):
     return pix
 
 
-def lb2pix(nside, l, b, nest=True):
+def lb2pix(nside, l, b, nest=True, use_native=True):
     """Galactic `(l, b)` degrees -> HEALPix pixel index.
 
     Parity: reference `brutus/dust.py:22-68` (invalid latitudes map to -1).
+    `use_native` is the JAX package's switch to its C++ tier; the port
+    has none, so both values take this numpy path.
     """
     if not nest:
         raise NotImplementedError("only nested ordering is supported")

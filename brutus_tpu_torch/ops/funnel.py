@@ -2,7 +2,8 @@
 Funnel likelihood of the PyTorch port: screen every grid model, keep the
 best blocks per star, gather them and fit them in full.
 
-Mirrors `brutus_tpu/ops/pallas_loglike.py` (single shard).  Three of the
+Mirrors `brutus_tpu/ops/pallas_loglike.py`, on one shard of the grid or
+on a mesh's `model` axis (`model_group`).  Three of the
 JAX package's four Pallas kernels live here, each as a hand-written CUDA
 kernel (`csrc/`) beside a plain PyTorch version of the same function:
 
@@ -31,6 +32,7 @@ from functools import lru_cache
 import torch
 
 from ..config import FitConfig, LN2PI
+from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ._native import KERNELS, check
 from .optimize import prepare_star_data
 
@@ -202,6 +204,49 @@ def _select_blocks(bscore, nb, block):
     idx = (bidx[:, :, None] * block + ar).reshape(bscore.shape[0],
                                                   nb * block)
     return bidx.contiguous(), idx
+
+
+def _select_blocks_sharded(bscore, nb, block, group):
+    """Cross-shard top-`nb` block selection of the model-sharded funnel
+    (mirrors `pallas_loglike._select_blocks_sharded`, :1017-1045).
+    `bscore (B, nblocks_l)` holds this shard's block maxima; shard `s`
+    of the model `group` owns global blocks `[s * nblocks_l, (s + 1) *
+    nblocks_l)`.  Each shard ranks its own blocks, the candidates'
+    scores and global ids are all-gathered, and every shard re-ranks
+    the union to the same global top-`nb`.  Returns `(bidx (B, nb),
+    idx (B, nb * block), mine (B, nb))`, global ids and the blocks this
+    shard owns."""
+    B, nblocks_l = bscore.shape
+    sc, ix = torch.topk(bscore, min(nb, nblocks_l), dim=1, sorted=True)
+    lo = group_rank(group) * nblocks_l
+    cand_sc = all_gather(sc, group, dim=1)
+    cand_ix = all_gather(ix.to(torch.int32) + lo, group, dim=1)
+    sel = torch.topk(cand_sc, nb, dim=1, sorted=True).indices
+    bidx = torch.gather(cand_ix, 1, sel).contiguous()
+    ar = torch.arange(block, dtype=torch.int32, device=bscore.device)
+    idx = (bidx[:, :, None] * block + ar).reshape(B, nb * block)
+    mine = (bidx >= lo) & (bidx < lo + nblocks_l)
+    return bidx, idx, mine
+
+
+def select_and_gather(table, bscore, nb, block, group=None):
+    """The funnel's block selection and slab gather (K3): `(bidx, idx,
+    slab (C, B, nb * block))`.  On a model `group`, each shard gathers
+    the selected blocks it owns (local ids; block 0 for the others,
+    whose slots are then zeroed) and one all-reduce SUM over the group
+    assembles every star's whole shortlist on every shard
+    (`loglike_grid_screened`'s sharded branch, :1301-1315)."""
+    if group_size(group) == 1:
+        bidx, idx = _select_blocks(bscore, nb, block)
+        return bidx, idx, gather_slabs(table, bidx, block)
+    bidx, idx, mine = _select_blocks_sharded(bscore, nb, block, group)
+    local = torch.where(mine, bidx - group_rank(group) * bscore.shape[1],
+                        torch.zeros_like(bidx))
+    slab = gather_slabs(table, local.contiguous(), block)
+    keep = mine[:, :, None].expand(*mine.shape, block).reshape(1, -1,
+                                                                idx.shape[1])
+    slab = torch.where(keep, slab, torch.zeros_like(slab))
+    return bidx, idx, all_reduce(slab, "sum", group)
 
 
 # ---------------------------------------------------------------------------
@@ -464,10 +509,19 @@ def fit_pack(star, coef, gidx, srow, n_aux, n_rows, n_real_mask, tile,
 def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
                           aux_names, parallax=None, parallax_err=None,
                           cfg: FitConfig = FitConfig(), tile=512,
-                          screen_k=12288, screen_block=256):
-    """Funnel likelihood (mirrors `loglike_grid_screened`, one shard):
-    K2 scores every model, the best `screen_k // block` blocks per star
-    are kept, K3 gathers them and K1 fits them.
+                          screen_k=12288, screen_block=256,
+                          model_group=None):
+    """Funnel likelihood (mirrors `loglike_grid_screened`): K2 scores
+    every model, the best `screen_k // block` blocks per star are kept,
+    K3 gathers them and K1 fits them.
+
+    With a `model_group` of several shards (the JAX package's
+    `model_axis`, with `n_model_shards` its size), `table` and
+    `maskrow` are this shard's contiguous slice of the padded grid and
+    `n_real` the grid's real model count: each shard screens its own
+    models, the block shortlists merge over the group
+    (`select_and_gather`), and K1 runs on the whole shortlist on every
+    shard, so everything after the merge is the same on each.
 
     Returns a dict: `pack` (B, n_rows, P) stacked fit output, `names`
     its row names (`pack_row_names`), `ndim` (B,) usable bands, and
@@ -476,7 +530,7 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     """
     B, F = flux.shape
     dev = table.device
-    Mp = table.shape[1]
+    Mp = table.shape[1] * group_size(model_group)   # the whole grid's
     flux = flux.to(dev, torch.float32)
     fluxerr = fluxerr.to(dev, torch.float32)
     mask = mask.to(dev)
@@ -496,8 +550,7 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     plx, plxw = _screen_parallax(parallax, parallax_err)
     star2, srow5 = _screen_star_mats(mags, wt_mag, plx, plxw)
     bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
-    bidx, idx = _select_blocks(bscore, nb, block)
-    coef = gather_slabs(table, bidx, block)
+    _, idx, coef = select_and_gather(table, bscore, nb, block, model_group)
 
     n_aux = len(aux_names)
     n_rows = 12 + n_aux

@@ -22,6 +22,13 @@ reaches the values it would alone.  `loglike_grid`, `optimize_mag` and
 functions do.  The filter-axis sums run at full float32 precision (TF32
 off), as the JAX package traces them at `default_matmul_precision(
 "highest")`, and in the coefficients' dtype.
+
+`loglike_grid` also runs on one shard of a grid sharded over a mesh's
+`model` axis (`model_group`), as the JAX package's dense reference
+engine runs under GSPMD: every per-star reduction over the models (the
+convergence tests' maxima, the init cull's best) is taken over the
+whole grid by an all-reduce MAX, so each shard iterates as often, and
+reaches the values, that the whole grid would.
 """
 
 import contextlib
@@ -30,6 +37,7 @@ import math
 import torch
 
 from ..config import FitConfig, LN2PI
+from ..parallel.mesh import all_reduce, group_size
 from ..utils import chi2_logpdf, inverse3
 from .sed import get_seds_flux
 
@@ -87,9 +95,15 @@ def _fdot(X, w):
     return (X * w[:, None, :]).sum(-1)
 
 
-def _masked_max(x, mask):
+def _gmax(x, group=None):
+    """Per-star max of `x (B, M)` over the models, of the whole grid on
+    a model `group`."""
+    return all_reduce(x.amax(-1), "max", group)
+
+
+def _masked_max(x, mask, group=None):
     """Per-star max of `x (B, M)` over `mask`, -inf where it is empty."""
-    return torch.where(mask, x, torch.full_like(x, -math.inf)).amax(-1)
+    return _gmax(torch.where(mask, x, torch.full_like(x, -math.inf)), group)
 
 
 def _clip(x, lo, hi):
@@ -143,7 +157,8 @@ def direct_mag_init(mags, wt_mag, mag_coeffs, cfg: FitConfig):
     return av, torch.clamp(rv, *cfg.rvlim)
 
 
-def _optimize_mag(mags, wt_mag, mag_coeffs, av0, rv0, cfg: FitConfig):
+def _optimize_mag(mags, wt_mag, mag_coeffs, av0, rv0, cfg: FitConfig,
+                  group=None):
     if cfg.mag_direct_init:
         av0, rv0 = direct_mag_init(mags, wt_mag, mag_coeffs, cfg)
     mag0 = mag_coeffs[..., 0]
@@ -189,9 +204,9 @@ def _optimize_mag(mags, wt_mag, mag_coeffs, av0, rv0, cfg: FitConfig):
         resid = resid - (av * drv)[..., None] * dr
         # convergence over the good fits (fitting.py:240-264)
         logwt = -0.5 * _fdot(resid * resid, wt_mag)
-        good = logwt > logwt.amax(-1, keepdim=True) + log_init_thresh
+        good = logwt > _gmax(logwt, group)[:, None] + log_init_thresh
         err = _masked_max(torch.maximum(torch.abs(dav), torch.abs(drv)),
-                          good)
+                          good, group)
         return av, rv, err
 
     av, rv = av0, rv0
@@ -313,7 +328,7 @@ def optimize_flux_step(wt_flux, models, rvecs, drvecs, resid, av, rv,
 
 
 def _flux_polish(flux, wt_flux, mcoeffs, init_arrays, keep,
-                 cfg: FitConfig):
+                 cfg: FitConfig, group=None):
     """Damped flux-space iteration to convergence (mirrors
     `optimize._flux_polish`; the `while lerr > ltol` loop of reference
     `fitting.py:777-803`): a star stops when the log-likelihood change
@@ -351,9 +366,9 @@ def _flux_polish(flux, wt_flux, mcoeffs, init_arrays, keep,
          chi2) = _sed_mle(flux, wt_flux, mcoeffs, av_n, rv_n, cfg,
                           want_step_sums=True)
         lnl_new = -0.5 * chi2
-        sel = keep & (lnl_new > _masked_max(lnl_new, keep)[:, None]
+        sel = keep & (lnl_new > _masked_max(lnl_new, keep, group)[:, None]
                       + ln_subthresh)
-        lerr_n = _masked_max(torch.abs(lnl_new - lnl_old), sel)
+        lerr_n = _masked_max(torch.abs(lnl_new - lnl_old), sel, group)
         step_n = torch.where(lnl_new < lnl_old,
                              stepsize / cfg.stepsize_rescale, stepsize)
         f = lambda new, old: _freeze(active, new, old)
@@ -372,12 +387,14 @@ def _flux_polish(flux, wt_flux, mcoeffs, init_arrays, keep,
 # ---------------------------------------------------------------------------
 
 def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
-                       parallax_err, av_init, rv_init, cfg: FitConfig):
+                       parallax_err, av_init, rv_init, cfg: FitConfig,
+                       group=None):
     """Batched `optimize._loglike_grid_body`: data hygiene, the
     magnitude phase, the flux-space MLE expansion, the init cull (with
     the parallax in scale space), the flux polish of the kept models,
     the Gaussian constant and the chi2 dimensionality prior.  Star-side
-    inputs are `(B, ...)`; see the module docstring."""
+    inputs are `(B, ...)`; `group` a model group over which the grid is
+    sharded (see the module docstring)."""
     dtype = mag_coeffs.dtype
     flux = flux.to(dtype)
     fluxerr = fluxerr.to(dtype)
@@ -393,7 +410,7 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
     rv0 = (torch.as_tensor(rv_init, **kw).expand(B, M)
            if rv_init is not None else torch.full((B, M), cfg.rv0, **kw))
     av, rv, n_iter_mag = _optimize_mag(mags, wt_mag, mag_coeffs, av0, rv0,
-                                       cfg)
+                                       cfg, group)
     (models, rvecs, drvecs, scale, icov_parts,
      resid) = _sed_mle(flux, wt_flux, mag_coeffs, av, rv, cfg)
     chi2_mag = _fdot(resid * resid, wt_flux)
@@ -408,7 +425,7 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
                              (par - parallax[:, None]) ** 2
                              / perr[:, None] ** 2, torch.zeros_like(par))
         lnl_p = lnl_mag - 0.5 * chi2_p
-        keep = lnl_p > lnl_p.amax(-1, keepdim=True) + math.log(
+        keep = lnl_p > _gmax(lnl_p, group)[:, None] + math.log(
             cfg.init_thresh)
     else:
         lnl_p = lnl_mag
@@ -418,6 +435,8 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
     const = -0.5 * (ndim * LN2PI + (torch.log(torch.where(
         mask, tot_var, torch.ones_like(tot_var))) * mask).sum(-1))
     if cfg.polish_k and cfg.polish_k < M:
+        if group_size(group) > 1:
+            raise NotImplementedError("polish_k on a model-sharded grid")
         # The JAX package takes `lax.approx_max_k`, which is exact off
         # the TPU; this is the exact `topk`.
         sel = torch.topk(lnl_p, cfg.polish_k, dim=-1).indices
@@ -442,7 +461,7 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
         (chi2_f, scale_f, av_f, rv_f, icov_f, n_iter_flux) = _flux_polish(
             flux, wt_flux, mag_coeffs,
             (models, rvecs, drvecs, scale, av, rv, icov_parts, resid),
-            keep, cfg)
+            keep, cfg, group)
         lnl = torch.where(keep, -0.5 * chi2_f + const[:, None], lnl_mag)
         chi2 = torch.where(keep, chi2_f, chi2_mag)
         scale = torch.where(keep, scale_f, scale)
@@ -461,7 +480,7 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
 
 def loglike_grid(flux, fluxerr, mask, mag_coeffs, parallax=math.nan,
                  parallax_err=math.nan, av_init=None, rv_init=None,
-                 cfg: FitConfig = FitConfig()):
+                 cfg: FitConfig = FitConfig(), model_group=None):
     """Log-likelihood of stars against every model of `mag_coeffs`,
     profiling out `(s, Av, Rv)` per model, with the reference's
     convergence loops (mirrors `optimize.loglike_grid`).
@@ -472,6 +491,8 @@ def loglike_grid(flux, fluxerr, mask, mag_coeffs, parallax=math.nan,
     optional (M,) or (B, M) magnitude-phase seeds (default the prior
     means; ignored with `cfg.mag_direct_init`).  `cfg.polish_k > 0`
     polishes the best `polish_k` models of each star (exact `topk`).
+    `model_group`: `mag_coeffs` is this shard's slice of a grid sharded
+    over that group (module docstring; not with `polish_k`).
 
     Returns a dict: `lnlike, chi2, scale, av, rv` (M,) / (B, M),
     `icov_parts` the 6 precision parts, `ndim`, and `n_iter`, the
@@ -493,7 +514,7 @@ def loglike_grid(flux, fluxerr, mask, mag_coeffs, parallax=math.nan,
                            **kw).expand(B)
     with highest_precision():
         out = _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, plx, plxe,
-                                 av_init, rv_init, cfg)
+                                 av_init, rv_init, cfg, model_group)
     if single:
         out = {k: tuple(p[0] for p in v) if k == "icov_parts" else v[0]
                for k, v in out.items()}

@@ -34,6 +34,7 @@ from ..config import PosteriorConfig, GalPriorConfig, DustPriorConfig
 from ..coords import _M
 from ..priors import (gal_lnprior, dust_lnprior, parallax_lnprior,
                       scale_parallax_lnprior)
+from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ..utils import (sym3_from_parts, psd_repair_parts, cholesky3_parts)
 from .mc import mc_integrate, nmc_pad_of, NL_PAD
 from . import rng
@@ -73,10 +74,14 @@ def draw_noise(seed, rows, K, cfg: PosteriorConfig, device, grid=False):
 
 def _categorical_cdf(u, logits, n):
     """`n` categorical draws per row by inverse-CDF sampling (mirrors
-    `posterior._categorical_cdf`): u (B, n) uniforms, logits (B, K)."""
+    `posterior._categorical_cdf`): u (B, n) uniforms, logits (B, K).
+    The CDF is summed in float64: a float32 `cumsum` on the card rounds
+    differently for a batch of another size, which moved a few of a
+    row's draws to a neighbouring model with its batch
+    (`tools/cdf_batch_probe.py`)."""
     wt = torch.softmax(logits, dim=1)
-    cdf = torch.cumsum(wt, dim=1)
-    v = (u * cdf[:, -1:]).contiguous()
+    cdf = torch.cumsum(wt.double(), dim=1)
+    v = (u.double() * cdf[:, -1:]).contiguous()
     idx = torch.searchsorted(cdf.contiguous(), v, side="left")
     return torch.clamp(idx, 0, logits.shape[1] - 1)
 
@@ -139,16 +144,27 @@ def _lnprob(lnlike, scale, s_den, plx, plxe):
     return torch.where(torch.isfinite(lp), lp, torch.full_like(lp, NEG_BIG))
 
 
-def _prefilter(lnprob, lnprob_max, cfg: PosteriorConfig):
+def _prefilter(lnprob, lnprob_max, cfg: PosteriorConfig, group=None):
     """`(B, prefilter_k)` indices of the likelihood-rank prefilter, best
     first, on the max-shifted key rounded to bf16 when
-    `cfg.prefilter_bf16` (`posterior.py:267-313`)."""
+    `cfg.prefilter_bf16` (`posterior.py:267-313`).  On a model `group`
+    (`lnprob` this shard's `(B, M)` columns, `lnprob_max` the whole
+    grid's) the indices are global columns: each shard keeps its own
+    best, and the union of the shards' candidates, all-gathered in
+    shard order, is ranked again, which keeps the single-grid order
+    (ties to the lower column)."""
     if cfg.prefilter_bf16:
         key = torch.clamp(lnprob - lnprob_max, min=-3e4).to(
             torch.bfloat16).to(torch.float32)
     else:
         key = lnprob
-    return _top_k(key, cfg.prefilter_k)
+    if group_size(group) == 1:
+        return _top_k(key, cfg.prefilter_k)
+    M = key.shape[1]
+    loc = _top_k(key, min(cfg.prefilter_k, M))
+    cand_key = all_gather(torch.gather(key, 1, loc), group, dim=1)
+    cand_col = all_gather(loc + group_rank(group) * M, group, dim=1)
+    return torch.gather(cand_col, 1, _top_k(cand_key, cfg.prefilter_k))
 
 
 def _take(x, idx):
@@ -158,6 +174,29 @@ def _take(x, idx):
     if x is None or idx is None:
         return x
     return x[idx] if x.dim() == 1 else torch.gather(x, 1, idx)
+
+
+def _take_sharded(fields, cols, group):
+    """Every field of `fields` (each `(B, M)` or `(M,)` over this
+    shard's models, or None) at the global columns `cols (B, n)` of a
+    grid sharded over the model `group`: each shard fills the columns
+    it owns, zero elsewhere, and one all-reduce SUM of the stacked
+    fields (in float64, which holds every float32 and index exactly)
+    gives every shard all of them."""
+    names = [k for k, v in fields.items() if v is not None]
+    M = fields[names[0]].shape[-1]
+    loc = cols - group_rank(group) * M
+    mine = (loc >= 0) & (loc < M)
+    loc = torch.where(mine, loc, torch.zeros_like(loc))
+    stack = torch.stack([
+        torch.where(mine, _take(fields[k], loc).to(torch.float64),
+                    torch.zeros(loc.shape, dtype=torch.float64,
+                                device=loc.device)) for k in names])
+    stack = all_reduce(stack, "sum", group)
+    out = dict.fromkeys(fields)
+    for k, v in zip(names, stack):
+        out[k] = v.to(fields[k].dtype)
+    return out
 
 
 def _per_star(fn, args, mapped):
@@ -309,25 +348,44 @@ def _select_stage(pack, names, ndim, coord, parallax, parallax_err,
 
 def _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
                  parallax, parallax_err, dust_profile, cfg, gal_cfg,
-                 dust_cfg, apply_av_prior, lngalprior, lndustprior):
+                 dust_cfg, apply_av_prior, lngalprior, lndustprior,
+                 group=None):
     """`_select_stage` on `loglike_grid_fused`'s form of the fit (the
     `lnpost_grid` path, `posterior.py:209-528`): `(B, M)` fields, grid
     rows `lnprior_grid`, `feh`, `loga` either `(M,)` (gathered at the
-    selected models, never copied per star) or per star `(B, M)`."""
+    selected models, never copied per star) or per star `(B, M)`.
+
+    On a model `group` the fields and rows cover this shard's slice of
+    the grid, and the merges GSPMD makes of the JAX package's
+    reductions are made here: the per-star maximum by an all-reduce
+    MAX, the prefilter over every shard (`_prefilter`), and the
+    prefiltered models' fields from their owners (`_take_sharded`);
+    without a prefilter every shard all-gathers the whole grid.  The
+    rest then runs alike on every shard."""
     parts = tuple(results["icov_parts"])
     f = dict(lnlike=results["lnlike"], scale=results["scale"],
              av=results["av"], rv=results["rv"], chi2=results["chi2"],
              lnprior=lnprior_grid, feh=feh, loga=loga, gidx=global_idx)
     f.update({f"i{j}": x for j, x in enumerate(parts)})
     B, M = f["lnlike"].shape
+    n_shards = group_size(group)
     plx, plxe = parallax[:, None], parallax_err[:, None]
     lnprob = _lnprob(f["lnlike"], f["scale"], f["i0"], plx, plxe)
-    lnprob_max = lnprob.amax(1, keepdim=True)
+    lnprob_max = all_reduce(lnprob.amax(1, keepdim=True), "max", group)
+    if n_shards > 1 and global_idx is None:
+        f["gidx"] = torch.arange(M, device=lnprob.device) + group_rank(
+            group) * M
+    M = M * n_shards
     K = selection_size(cfg, M)
     pre = None
     if _pack_usable(cfg, M):
-        pre = _prefilter(lnprob, lnprob_max, cfg)
-        f = {k: _take(v, pre) for k, v in f.items()}
+        pre = _prefilter(lnprob, lnprob_max, cfg, group)
+        f = (_take_sharded(f, pre, group) if n_shards > 1
+             else {k: _take(v, pre) for k, v in f.items()})
+        lnprob = _lnprob(f["lnlike"], f["scale"], f["i0"], plx, plxe)
+    elif n_shards > 1:
+        f = {k: None if v is None else all_gather(v, group, dim=v.dim() - 1)
+             for k, v in f.items()}
         lnprob = _lnprob(f["lnlike"], f["scale"], f["i0"], plx, plxe)
     lnp_sel, valid, sel = _cull_select(
         lnprob, lnprob_max, f["lnlike"], f["lnprior"], f["scale"], f["av"],
@@ -337,13 +395,13 @@ def _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
     chi2_k, ndim_out, chi2min = _chi2_bookkeeping(
         fk["chi2"], fk["scale"], valid, results["ndim"], parallax,
         parallax_err)
-    if global_idx is not None:
+    if fk["gidx"] is not None:
         sel_gidx = fk["gidx"]
     else:
         cols = torch.arange(M, device=lnprob.device)
         sel_gidx = _take(_take(cols, pre), sel)
-        if sel_gidx.dim() == 1:
-            sel_gidx = sel_gidx.expand(B, M)
+    if sel_gidx.dim() == 1:
+        sel_gidx = sel_gidx.expand(B, M)
     return dict(lnp_sel=lnp_sel, valid=valid, scale_k=fk["scale"],
                 av_k=fk["av"], rv_k=fk["rv"], chi2_k=chi2_k,
                 icov_k=tuple(fk[f"i{j}"] for j in range(6)),
@@ -490,7 +548,8 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
                 global_idx=None, cfg: PosteriorConfig = PosteriorConfig(),
                 gal_cfg: GalPriorConfig = GalPriorConfig(),
                 dust_cfg: DustPriorConfig = DustPriorConfig(),
-                apply_av_prior=True, lngalprior=None, lndustprior=None):
+                apply_av_prior=True, lngalprior=None, lndustprior=None,
+                model_group=None):
     """Posterior weights and `(dist, Av, Rv)` draws for a batch of stars,
     with the MC integration in plain PyTorch (mirrors
     `posterior.lnpost_grid`, :453-577, with a leading star axis, as the
@@ -512,6 +571,12 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
     `lndustprior(dist, av, av_dist, av_mean, av_std)`; they are applied
     over the star axis with `torch.func.vmap`.
 
+    With a `model_group`, `results` and the grid rows cover this
+    shard's contiguous slice of a grid sharded over that group (the
+    dense reference engine on a mesh): the selection merges over the
+    shards (`_select_grid`), and `noise` is drawn for the whole grid's
+    model count; every shard returns the same result.
+
     Returns the fields of `lnpost_batch` (its `sel_idx` through
     `global_idx` when given).
     """
@@ -520,7 +585,8 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
         B, results["lnlike"].device, parallax, parallax_err, coord)
     sel = _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
                        parallax, parallax_err, dust_profile, cfg, gal_cfg,
-                       dust_cfg, apply_av_prior, lngalprior, lndustprior)
+                       dust_cfg, apply_av_prior, lngalprior, lndustprior,
+                       model_group)
     lnp_sel, valid = sel["lnp_sel"], sel["valid"]
     scale_k, av_k, rv_k = sel["scale_k"], sel["av_k"], sel["rv_k"]
 

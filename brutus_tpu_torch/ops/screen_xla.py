@@ -19,6 +19,14 @@ the shortlists: the same engine as the dense reference engine, whose
 convergence predicates then range over the shortlist.  Padding models
 inside selected slabs are fitted as the JAX package pads its grid (the
 last model, 60 mag fainter) and killed by grid index afterwards.
+
+On a mesh's `model` axis (`model_group`, the JAX package's
+`model_axis`), each shard screens its slice of the grid and the
+shortlists merge exactly as the fused funnel's do
+(`funnel.select_and_gather`); stage 2 then runs on every shard.  The
+padding's faint copy comes from `last`, the last real model's rows
+that every shard carries (`convert.GridTables.last`): the shard that
+holds column `n_real - 1` is only one of them.
 """
 
 import math
@@ -26,8 +34,9 @@ import math
 import torch
 
 from ..config import FitConfig
-from .funnel import (_screen_parallax, _screen_star_mats, _select_blocks,
-                     _slab_block, gather_slabs, screen_blocks)
+from ..parallel.mesh import group_size
+from .funnel import (_screen_parallax, _screen_star_mats, _slab_block,
+                     screen_blocks, select_and_gather)
 from .optimize import _loglike_grid_body, highest_precision, \
     prepare_star_data
 
@@ -35,14 +44,16 @@ from .optimize import _loglike_grid_body, highest_precision, \
 def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
                               aux_names, parallax=None, parallax_err=None,
                               cfg: FitConfig = FitConfig(), tile=512,
-                              screen_k=8192, screen_block=256):
+                              screen_k=8192, screen_block=256, last=None,
+                              model_group=None):
     """Batched funnel likelihood with the reference's semantics (mirrors
-    `screen_xla.loglike_grid_screened_xla` without its `model_axis`
-    mode).
+    `screen_xla.loglike_grid_screened_xla`).
 
     flux, fluxerr, mask : (B, F); table, maskrow : `from_numpy_grid`'s
-    `(3F + n_aux, Mp)` table and `(Mp,)` mask row; `n_real` real models;
-    parallax, parallax_err : (B,) or None.
+    `(3F + n_aux, Mp)` table and `(Mp,)` mask row (this shard's slice
+    on a `model_group`); `n_real` the grid's real models; parallax,
+    parallax_err : (B,) or None; last : the `(3F,)` rows of model
+    `n_real - 1` (read from `table` when None, which a shard cannot).
 
     Returns `optimize.loglike_grid`'s dict with `(B, P)` fields (no
     `n_iter`), `global_idx` the `(B, P)` int32 grid index of each
@@ -51,7 +62,7 @@ def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
     """
     B, F = flux.shape
     dev = table.device
-    Mp = table.shape[1]
+    Mp = table.shape[1] * group_size(model_group)   # the whole grid's
     f32 = torch.float32
     flux = flux.to(dev, f32)
     fluxerr = fluxerr.to(dev, f32)
@@ -67,8 +78,8 @@ def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
                                      *_screen_parallax(parallax,
                                                        parallax_err))
     bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
-    bidx, idx = _select_blocks(bscore, nb, block)
-    slab = gather_slabs(table, bidx, block)              # (C, B, P)
+    _, idx, slab = select_and_gather(table, bscore, nb, block,
+                                     model_group)        # (C, B, P)
     P = nb * block
     coeffs = slab[:3 * F].reshape(3, F, B, P).permute(2, 3, 1,
                                                       0).contiguous()
@@ -77,7 +88,11 @@ def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
         # whose NaNs end a star's convergence loops; the loops see the
         # JAX package's padding instead: the last model, 60 mag fainter
         # (`prepare_screen_xla`).
-        faint = table[:3 * F, n_real - 1].reshape(3, F).T.clone()
+        if last is None:
+            if group_size(model_group) > 1:
+                raise ValueError("a model shard needs `last`")
+            last = table[:3 * F, n_real - 1]
+        faint = last.reshape(3, F).T.clone()
         faint[:, 0] += 60.0
         coeffs = torch.where((idx >= n_real)[..., None, None], faint,
                              coeffs)

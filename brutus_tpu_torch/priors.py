@@ -169,13 +169,17 @@ def logp_age_from_feh(age, feh_mean=-0.2, **kw):
 
 
 def gal_lnprior(dists, coord, feh=None, loga=None,
-                cfg: GalPriorConfig = GalPriorConfig()):
+                cfg: GalPriorConfig = GalPriorConfig(),
+                return_components=False):
     """Galactic 3-D prior (thin + thick disk + halo) with optional
     metallicity and age mixtures (reference `brutus/pdf.py:476-749`).
 
     dists : (...,) or (B, K) kpc; coord : (2,) or per-star (B, 2)
     galactic `(l, b)` degrees; feh, loga : optional model labels
-    broadcastable to `dists`.
+    broadcastable to `dists`.  With `return_components` it returns
+    `(lnprior, components)` as `brutus_tpu.priors.gal_lnprior` does:
+    `number_density` the thin, thick and halo terms, and `feh` and
+    `age` the mixtures when those labels are given.
     """
     vol_factor = 2.0 * torch.log(dists + 1e-300)
     coord = torch.as_tensor(coord, dtype=dists.dtype, device=dists.device)
@@ -194,14 +198,17 @@ def gal_lnprior(dists, coord, feh=None, loga=None,
                  + vol_factor + math.log(cfg.f_halo))
     lnprior = torch.logsumexp(
         torch.stack([logp_thin, logp_thick, logp_halo]), dim=0)
+    components = {"number_density": [logp_thin, logp_thick, logp_halo]}
     lnp = [logp_thin - lnprior, logp_thick - lnprior, logp_halo - lnprior]
     comps = [(cfg.feh_thin, cfg.feh_thin_sigma),
              (cfg.feh_thick, cfg.feh_thick_sigma),
              (cfg.feh_halo, cfg.feh_halo_sigma)]
     if feh is not None:
-        lnprior = lnprior + torch.logsumexp(torch.stack(
+        feh_mix = torch.logsumexp(torch.stack(
             [logp_feh(feh, mu, sig) + w
              for (mu, sig), w in zip(comps, lnp)]), dim=0)
+        lnprior = lnprior + feh_mix
+        components["feh"] = feh_mix
     if loga is not None:
         age = 10 ** loga / 1e9
         kw = dict(max_age=cfg.max_age, min_age=cfg.min_age,
@@ -209,9 +216,13 @@ def gal_lnprior(dists, coord, feh=None, loga=None,
                   feh_age_scale=cfg.feh_age_scale,
                   nsigma_from_max_age=cfg.nsigma_from_max_age,
                   max_sigma=cfg.max_sigma, min_sigma=cfg.min_sigma)
-        lnprior = lnprior + torch.logsumexp(torch.stack(
+        age_mix = torch.logsumexp(torch.stack(
             [logp_age_from_feh(age, feh_mean=mu, **kw) + w
              for (mu, _), w in zip(comps, lnp)]), dim=0)
+        lnprior = lnprior + age_mix
+        components["age"] = age_mix
+    if return_components:
+        return lnprior, components
     return lnprior
 
 

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-13 on the CPU
     python3 chip_smoke.py --profile     # where each fit path's time goes
     python3 chip_smoke.py --rates 2     # warm stars/s of the fused paths
+    python3 chip_smoke.py --mesh        # phase 14's paths on four cards
 
 Phases, each printing one line with its elapsed seconds:
 
@@ -103,6 +104,22 @@ Phases, each printing one line with its elapsed seconds:
    float64 (`HOST_TOL`).  `--cpu --tiny` rehearses it with 256 stars,
    75 x 30 bins, 16 walkers, 200 steps, 6 rungs and one restart, the
    science checks reported, not held;
+14. the device mesh, `BruteForce.fit(mesh=...)` on `torch.distributed`:
+   the lattice written to `build/phase14/` for spawned ranks that load
+   the kernels phase 2 built; (a) a world of one over NCCL on a 1 x 1
+   mesh, phase 4's first batch of stars; (b)-(d) a world of two ranks
+   on the one card over gloo (NCCL refuses two ranks on one device;
+   gloo moves CUDA tensors through host memory, every kernel still
+   runs on the card): (b) the funnel on 1 x 2 (the grid sharded over
+   models, the block shortlists merged) on phase 4's stars, (c) the
+   funnel and the dense engine on 2 x 1 (the stars split) on phase 4's
+   and phase 6's first 64, (d) the reference-semantics funnel and dense
+   engine on 1 x 2 on phase 8's.  Each held against the single
+   process's rows in `MESH_KEYS`: equal bit for bit, or within the JAX
+   package's limits (`MESH_EVID_TOL`, `MESH_CHI2_TOL`, `MESH_AGREE`)
+   with the reason printed; every rank must launch its path's kernels
+   (`MESH_KERNELS`), whose counts go to the `kernels` line as phase 14;
+   stars/s per path, the slab all-reduce's time, the transport;
 7. last, a `kernels` JSON line: each kernel's launches during the path
    that runs it (phase 4, 5 or 6; each must be > 0) and on every phase
    that launched it (K2, K3, K1 and K4 must have launched in phase 13's
@@ -133,9 +150,13 @@ is one JSON object with these numbers.  `--rates N` times warm fits of
 the funnel, the funnel with fed normals and the dense engine in turns,
 N rounds forwards and backwards, and lists the host operations of one
 funnel fit; a copy of the script in an older checkout times that
-checkout the same way.  The script imports nothing of
-JAX nor of the JAX package; its grid generator is its own copy of the
-correlated lattice the repository's JAX benchmark uses.
+checkout the same way.  `--mesh` (four cards, never part of the
+default run) runs phase 14's paths on 1 x 4, 2 x 2 and 4 x 1 meshes over
+NCCL, and the funnel at 32768 stars on 4 x 1 and 1 x 4, each twice (cold,
+warm) against its warm single-process run on card 0; `--mesh --cpu
+--tiny` rehearses it with four gloo processes.  The script imports
+nothing of JAX nor of the JAX package; its grid generator is its own
+copy of the correlated lattice the repository's JAX benchmark uses.
 """
 
 import argparse
@@ -2065,6 +2086,371 @@ def report_apps(a, tiny, t0):
                                  "the injected band against its control")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the device mesh
+# ---------------------------------------------------------------------------
+
+# What phase 14 holds a mesh's fit to when it is not equal to the single
+# process's bit for bit (`tests/test_parallel.py`'s limits): log-evidence
+# rtol, atol; chi2min rtol; the share of equal drawn models.
+MESH_EVID_TOL = (1e-6, 1e-5)
+MESH_CHI2_TOL = 1e-6
+MESH_AGREE = 0.95
+# The outputs held: drawn models, log-evidence, chi2min, distance and Av
+# draws.
+MESH_KEYS = ("model_idx", "log_evidence", "chi2min", "dist", "red")
+# Seconds a phase-14 world may run before it is killed (each collective
+# of its process group times out sooner, at `MESH_COLLECTIVE_S`).
+MESH_WORLD_S = 600
+MESH_COLLECTIVE_S = 300
+MESH_DIR = os.path.join("build", "phase14")
+# The kernels each path must launch on every rank.
+MESH_KERNELS = dict(funnel=("screen", "gather", "fit", "mc_rng"),
+                    dense=("fit_dense",), xla_funnel=("screen", "gather"),
+                    xla_dense=())
+
+
+def mesh_jobs(tiny, four=False):
+    """Phase 14's fits: `(name, path, mesh shape, stars, batch, screen_k,
+    n_sel, engine)`, the stars given as `(n, seed, first n)` of
+    `stars()`.  The single card's worlds: (b) the funnel on 1 x 2, (c)
+    the funnel and the dense fused engine on 2 x 1, (d) the
+    reference-semantics funnel and dense engine on 1 x 2; with `four`,
+    the four cards' 1 x 4, 2 x 2 and 4 x 1 meshes instead."""
+    n4, b4, k, ns = (16, 8, 1024, 256) if tiny else (512, 128, 12288, 2048)
+    n6, b6, f6 = (16, 8, 8) if tiny else (256, 16, 64)
+    n8, b8, c8, bc8 = (16, 8, 8, 8) if tiny else (128, 128, 16, 8)
+    fun = ((n4, 7, n4), b4, k, ns, None)
+    dense = ((n6, 7, f6), b6, 0, ns, None)
+    xfun = ((n8, 9, n8), b8, k, 2048, "xla")
+    xdense = ((n8, 9, c8), bc8, 0, 2048, "xla")
+    if four:
+        nb, bb = (64, 32) if tiny else (32768, 1024)
+        big = ((nb, 7, nb), bb, k, ns, None)
+        return [("funnel 1x4", "funnel", (1, 4)) + fun,
+                ("funnel 2x2", "funnel", (2, 2)) + fun,
+                ("funnel 4x1", "funnel", (4, 1)) + fun,
+                (f"funnel 4x1, {nb} stars", "funnel", (4, 1)) + big,
+                (f"funnel 1x4, {nb} stars", "funnel", (1, 4)) + big,
+                ("dense 4x1", "dense", (4, 1)) + dense,
+                ("xla funnel 1x4", "xla_funnel", (1, 4)) + xfun,
+                ("xla dense 1x4", "xla_dense", (1, 4)) + xdense]
+    return [("(b) funnel 1x2", "funnel", (1, 2)) + fun,
+            ("(c) funnel 2x1", "funnel", (2, 1)) + fun,
+            ("(c) dense 2x1", "dense", (2, 1)) + dense,
+            ("(d) xla funnel 1x2", "xla_funnel", (1, 2)) + xfun,
+            ("(d) xla dense 1x2", "xla_dense", (1, 2)) + xdense]
+
+
+def mesh_stars(mc, spec):
+    n, seed, first = spec
+    s = stars(mc, n, seed=seed)
+    return {k: (v[:first] if np.ndim(v) else v) for k, v in s.items()}
+
+
+def mesh_worker(rank, world, backend, device_type, rdv, jobs, out_dir,
+                threads):
+    """One rank of a phase-14 world (a spawned process): joins the world
+    (`backend` over a file rendezvous), loads the kernels the parent
+    built and the grid it wrote, and runs `jobs` on their meshes, on a
+    CUDA device (rank modulo the card count) or the CPU.  Rank 0 saves
+    each fit's results; every rank saves its seconds, launch counts and
+    the time of its model-axis all-reduces (the funnel's slab merge)."""
+    import datetime
+    import torch.distributed as dist
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.ops import _native, funnel
+    from brutus_tpu_torch.parallel import initialize, make_mesh
+    from brutus_tpu_torch.parallel import mesh as pmesh
+    torch.set_num_threads(threads)
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        backend, init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_S))
+    initialize()                         # sees the world as joined
+    slab = dict(seconds=0.0, calls=0, bytes=0)
+
+    def timed_all_reduce(x, op, group):
+        """The funnel's all-reduces, timed (the slab merge is the large
+        one)."""
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.time()
+        y = pmesh.all_reduce(x, op, group)
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        if pmesh.group_size(group) > 1:
+            slab["seconds"] += time.time() - t0
+            slab["calls"] += 1
+            slab["bytes"] += x.numel() * x.element_size()
+        return y
+    funnel.all_reduce = timed_all_reduce
+    mc = np.load(os.path.join(out_dir, "grid.npy"), mmap_mode="r")
+    labels = np.load(os.path.join(out_dir, "labels.npy"))
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    rec, meshes = {}, {}
+    for name, _path, shape, spec, batch, screen_k, n_sel, engine in jobs:
+        # one mesh per shape, made by every rank in job order: a new mesh
+        # makes new process groups, whose first collective sets up its
+        # communicator
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape, devices=[dev] * world)
+        mesh = meshes[shape]
+        bf = BruteForce(mc, labels, device=mesh.device)
+        s = mesh_stars(mc, spec)
+        kw = fit_kwargs(s, batch, screen_k, n_sel, return_results=True,
+                        mesh=mesh, **({} if engine is None
+                                      else dict(engine=engine)))
+        slab.update(seconds=0.0, calls=0, bytes=0)
+        _native.reset_launches()
+        dist.barrier()
+        t0 = time.time()
+        out = bf.fit(s["flux"], s["err"], np.ones(s["flux"].shape, bool),
+                     **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.time() - t0
+        rec[name] = dict(seconds=dt, transport=mesh.transport(),
+                         launches={k: v.launches
+                                   for k, v in _native.KERNELS.items()},
+                         slab=dict(slab), coords=mesh.coords)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{name}.npz"),
+                     **{k: out[k] for k in MESH_KEYS})
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_world(n, backend, device_type, jobs, out_dir, threads=2):
+    """Spawn a phase-14 world of `n` ranks on `jobs` and wait for it
+    (killing it past `MESH_WORLD_S`); any rank's failure raises here.
+    Returns each rank's records and rank 0's results by job."""
+    import torch.multiprocessing as mp
+    os.makedirs(out_dir, exist_ok=True)
+    rdv = os.path.abspath(os.path.join(out_dir, "rdv"))
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    ctx = mp.start_processes(mesh_worker, args=(n, backend, device_type,
+                                                rdv, jobs, out_dir, threads),
+                             nprocs=n, join=False, start_method="spawn")
+    t_end = time.time() + MESH_WORLD_S
+    try:
+        while not ctx.join(timeout=2):
+            if time.time() > t_end:
+                raise AssertionError(f"a phase-14 world of {n} ranks ran "
+                                     f"past {MESH_WORLD_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    recs = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    outs = {}
+    for job in jobs:
+        with np.load(os.path.join(out_dir, f"{job[0]}.npz")) as z:
+            outs[job[0]] = {k: z[k] for k in z.files}
+    return recs, outs
+
+
+# Why a mesh's rows may differ from the single process's in the last
+# place, by the axis that splits the work.
+MESH_REASON = dict(
+    data="each data rank fits a share of every batch, and the plain "
+         "PyTorch stages' CUDA reductions round by an ulp differently "
+         "for batches of other sizes",
+    model="each rank sums over its shard of the grid, in another order "
+          "than over the whole grid")
+
+
+def mesh_compare(out, ref, n_model):
+    """A mesh's fit against the single process's rows: equal bit for bit
+    in `MESH_KEYS`, or else within the JAX package's limits (`MESH_*`)
+    with every drawn model in the grid."""
+    equal = all(np.array_equal(out[k], ref[k]) for k in MESH_KEYS)
+    lev = np.allclose(out["log_evidence"], ref["log_evidence"],
+                      rtol=MESH_EVID_TOL[0], atol=MESH_EVID_TOL[1])
+    chi = np.allclose(out["chi2min"], ref["chi2min"], rtol=MESH_CHI2_TOL)
+    agree = float(np.mean(out["model_idx"] == ref["model_idx"]))
+    inside = bool(((out["model_idx"] >= 0)
+                   & (out["model_idx"] < n_model)).all())
+    dev = {k: float(np.max(np.abs(out[k].astype(float)
+                                  - ref[k].astype(float))))
+           for k in ("log_evidence", "chi2min", "dist", "red")}
+    return dict(equal=equal, agree=agree, inside=inside, dev=dev,
+                ok=bool(inside and (equal or (lev and chi
+                                              and agree > MESH_AGREE))))
+
+
+def mesh_report(recs, outs, jobs, refs, n_model, worlds, cuda=True):
+    """Check and log each job of a world (on `cuda`, each rank must have
+    launched its path's kernels); returns the summed launches and the
+    job records."""
+    total = {}
+    res = {}
+    for name, path, shape, spec, *_ in jobs:
+        per = [r[name] for r in recs]
+        idle = [(i, k) for i, p in enumerate(per) for k in MESH_KERNELS[path]
+                if p["launches"][k] <= 0]
+        if idle and cuda:
+            raise AssertionError(f"phase 14 {name}: rank(s) launched no "
+                                 f"{idle}")
+        for p in per:
+            for k, v in p["launches"].items():
+                total[k] = total.get(k, 0) + v
+        n = len(outs[name]["model_idx"])
+        cmp = mesh_compare(outs[name], refs[name], n_model)
+        secs = max(p["seconds"] for p in per)
+        sl = per[0]["slab"]
+        res[name] = dict(cmp=cmp, stars_per_s=n / secs, seconds=secs,
+                         slab=sl, launches=[p["launches"] for p in per])
+        why = ("equal bit for bit" if cmp["equal"] else
+               f"not bit-equal (max |dev| {cmp['dev']}: "
+               f"{MESH_REASON['data' if shape[0] > 1 else 'model']}); held "
+               f"to the JAX package's limits: model_idx agreement "
+               f"{cmp['agree']:.4f}")
+        log(f"  phase 14 {name} ({worlds}): {n} stars, "
+            f"{n / secs:.1f} stars/s, {why}, drawn models in the grid "
+            f"{cmp['inside']}, transport {per[0]['transport']}"
+            + (f", slab merge {sl['calls']} all-reduces "
+               f"{sl['bytes'] / 1e6:.1f} MB {1e3 * sl['seconds']:.1f} ms"
+               if sl["calls"] else "")
+            + ", launches per rank " + "; ".join(
+                "/".join(f"{k}={p['launches'][k]}"
+                         for k in MESH_KERNELS[path]) or "none"
+                for p in per))
+        if not cmp["ok"]:
+            raise AssertionError(f"phase 14 {name} disagrees with the "
+                                 f"single process")
+    return total, res
+
+
+def phase_mesh(mc, labels, dev, tiny, runs, xla):
+    """Phase 14: `BruteForce.fit(mesh=...)` on this card: (a) a world of
+    one (NCCL on the card, gloo on the CPU) on a 1 x 1 mesh, phase 4's
+    first `batch` stars; (b)-(d) a world of two ranks on the one card
+    over gloo (NCCL refuses two ranks on one device; gloo carries the
+    CUDA tensors through host copies, every kernel still runs on the
+    card), the jobs of `mesh_jobs`, each against the single process's
+    rows of phases 4, 6 and 8 (`runs`, and `xla` for phase 8).  Returns
+    the launches by kernel, summed over ranks and jobs, and the
+    records."""
+    out_dir = MESH_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "grid.npy"), mc)
+    np.save(os.path.join(out_dir, "labels.npy"), labels)
+    n4, b4, k, ns = (16, 8, 1024, 256) if tiny else (512, 128, 12288, 2048)
+    one = [("(a) funnel 1x1", "funnel", (1, 1), (n4, 7, b4), b4, k, ns,
+            None)]
+    jobs = mesh_jobs(tiny)
+    refs = mesh_refs(one + jobs, runs, xla)
+    t0 = time.time()
+    recs, outs = mesh_world(1, "nccl" if dev.type == "cuda" else "gloo",
+                            dev.type, one, out_dir)
+    total, res = mesh_report(recs, outs, one, refs, len(mc),
+                             "a world of one", dev.type == "cuda")
+    res["world_one_s"] = time.time() - t0
+    t0 = time.time()
+    recs, outs = mesh_world(2, "gloo", dev.type, jobs, out_dir)
+    t2, r2 = mesh_report(recs, outs, jobs, refs, len(mc),
+                         "two ranks on one device", dev.type == "cuda")
+    res.update(r2, world_two_s=time.time() - t0)
+    for kname, v in t2.items():
+        total[kname] = total.get(kname, 0) + v
+    return dict(launches=total, jobs=res)
+
+
+def mesh_refs(jobs, runs, xla):
+    """The single process's rows of each phase-14 job: phase 4 (funnel),
+    6 (dense), 8 (the reference-semantics engines)."""
+    src = dict(funnel=runs[4]["out"], dense=runs[6]["out"],
+               xla_funnel=xla["funnel"]["out"],
+               xla_dense=xla["dense_fit"]["out"])
+    return {name: {k: src[path][k][:spec[2]] for k in MESH_KEYS}
+            for name, path, shape, spec, *_ in jobs}
+
+
+def mesh_main(dev, tiny):
+    """`--mesh`: phase 14's paths on four cards over NCCL (1 x 4, 2 x 2
+    and 4 x 1 meshes, and the funnel at 32768 stars on 4 x 1 and 1 x 4)
+    against their single-process runs on card 0; with `--cpu --tiny`,
+    four gloo processes on the CPU at the rehearsal's sizes."""
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.ops import _native
+    t_all = time.time()
+    cuda = dev.type == "cuda"
+    n = torch.cuda.device_count() if cuda else 4
+    if n < 4:
+        print(f"chip_smoke --mesh: needs 4 CUDA devices, found {n}",
+              file=sys.stderr)
+        return 1
+    card = nvidia_smi() if cuda else "CPU"
+    log(f"phase 1 devices: {card} x {n}")
+    if cuda:
+        t0 = time.time()
+        _native.build()
+        _native.library()
+        log(f"phase 2 build  [{time.time() - t0:.1f} s]")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+    mc, labels = correlated_grid(4000 if tiny else 750_000, 8)
+    jobs = mesh_jobs(tiny, four=True)
+    refs, ones = {}, {}
+    bf = BruteForce(mc, labels, device=dev)
+    for name, path, shape, spec, batch, screen_k, n_sel, engine in jobs:
+        key = (path, spec, batch)
+        if key not in ones:
+            s = mesh_stars(mc, spec)
+            extra = {} if engine is None else dict(engine=engine)
+            fit_stars(bf, s, dev, batch, screen_k, n_sel, **extra)  # warm
+            out, dt, _ = fit_stars(bf, s, dev, batch, screen_k, n_sel,
+                                   **extra)
+            ones[key] = ({k: out[k] for k in MESH_KEYS}, dt)
+            log(f"  single process on one device, {path}: "
+                f"{len(s['idx'])} stars in batches of {batch}, "
+                f"{len(s['idx']) / dt:.1f} stars/s (warm)")
+        refs[name] = ones[key][0]
+    del bf
+    if cuda:
+        torch.cuda.empty_cache()
+    out_dir = MESH_DIR + "_four"
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "grid.npy"), mc)
+    np.save(os.path.join(out_dir, "labels.npy"), labels)
+    t0 = time.time()
+    # each job twice: the first run is cold (tables, first launches)
+    jobs2 = [(name + suffix,) + j[1:] for j in jobs
+             for name, suffix in ((j[0], " cold"), (j[0], ""))]
+    recs, outs = mesh_world(4, "nccl" if cuda else "gloo", dev.type,
+                            jobs2, out_dir, threads=2 if cuda else 1)
+    refs2 = {j[0]: refs[j[0].replace(" cold", "")] for j in jobs2}
+    _, res = mesh_report(recs, outs, jobs2, refs2, len(mc),
+                         "four cards, NCCL" if cuda else "four CPU "
+                         "processes, gloo", cuda)
+    log(f"phase 14 --mesh: four-rank world {time.time() - t0:.1f} s  "
+        f"[{time.time() - t_all:.1f} s total]")
+    log(card)
+    log(json.dumps({"mesh": {
+        name: dict(stars_per_s=r["stars_per_s"], equal=r["cmp"]["equal"],
+                   agree=r["cmp"]["agree"],
+                   slab_ms=1e3 * r["slab"]["seconds"],
+                   slab_mb=r["slab"]["bytes"] / 1e6)
+        for name, r in res.items()},
+        "single": {f"{k[0]} {k[1][2]}": len(v[0]["model_idx"]) / v[1]
+                   for k, v in ones.items()},
+        "device": {"platform": "gpu" if cuda else "cpu",
+                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+                   "count": n}}))
+    return 0
+
+
 # --profile: the fit paths, their settings and the kernels each runs,
 # with their bounds at that path's shapes (750,080 padded models,
 # 8 bands; funnel batches of 128 with 48 blocks of 256 per star,
@@ -2569,8 +2955,15 @@ def main():
     ap.add_argument("--rates", type=int, default=0, metavar="ROUNDS",
                     help="time warm fits of the three fused paths in turns "
                          "on the card instead of the smoke phases")
+    ap.add_argument("--mesh", action="store_true",
+                    help="phase 14's paths on four cards over NCCL (1 x 4, "
+                         "2 x 2, 4 x 1) against one card, instead of the "
+                         "smoke phases")
     args = ap.parse_args()
     t_all = time.time()
+    if args.mesh:
+        return mesh_main(torch.device("cpu" if args.cpu else "cuda"),
+                         args.tiny)
     if args.cpu:
         dev = torch.device("cpu")
         # The rehearsal's tensors are small: on 8 cores all threads
@@ -2587,6 +2980,7 @@ def main():
             return profile_main(dev)
         if args.rates:
             return rates_main(dev, args.rates)
+
     from brutus_tpu_torch.ops import _native
     card = None
     attrs = {}
@@ -2783,6 +3177,22 @@ def main():
     t0 = time.time()
     runs[13] = phase_apps(mc, labels, dev, args.tiny, 128, screen_k, n_sel)
     report_apps(runs[13], args.tiny, t0)
+
+    t0 = time.time()
+    runs[14] = phase_mesh(mc, labels, dev, args.tiny, runs, x)
+    j = runs[14]["jobs"]
+    log(f"phase 14 device mesh: BruteForce.fit(mesh=...) on {M} models, "
+        f"(a) a world of one over "
+        f"{'NCCL' if dev.type == 'cuda' else 'gloo'} "
+        f"({j['world_one_s']:.1f} s), (b)-(d) two ranks on one "
+        f"{'card' if dev.type == 'cuda' else 'CPU'} over gloo "
+        f"({j['world_two_s']:.1f} s): every path's rows "
+        + ("equal the single process's bit for bit"
+           if all(v["cmp"]["equal"] for v in j.values()
+                  if isinstance(v, dict)) else
+           "within the JAX package's limits (not all bit-equal; above)")
+        + f", launches {runs[14]['launches']}  "
+        f"[{time.time() - t0:.1f} s]")
 
     kernels = []
     for name, k in _native.KERNELS.items():

@@ -6,6 +6,7 @@ options the port does not have yet; and the card-free import.  The
 dense engine on the same problem: `test_torch_dense.py`."""
 
 import functools
+import types
 import os
 import subprocess
 import sys
@@ -203,16 +204,20 @@ def test_funnel_draws_alike_with_and_without_kernel_rng(problem,
 
 
 NOT_PORTED = {
-    "mesh": (dict(mesh=object()), NotImplementedError,
-             "ROADMAP Queue 1 item 5"),
+    # a mesh whose model axis would shard the dense fused engine's grid
+    # (`brutus_tpu/fitting.py:763-768`); the mesh is read before any
+    # collective, so its shape alone stands for one here
+    "mesh": (dict(mesh=types.SimpleNamespace(shape={"data": 1, "model": 2}),
+                  engine="fused", screen_k=0), ValueError, "funnel"),
     "unknown_engine": (dict(engine="pallas"), ValueError, "engine"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_unported_options_raise(case):
-    """The device mesh, not ported yet, raises naming its ROADMAP item;
-    an engine neither 'fused' nor 'xla' raises `ValueError`."""
+    """A model-sharded mesh on the dense fused engine raises
+    `ValueError` naming the funnel, as the JAX package's does; an
+    engine neither 'fused' nor 'xla' raises `ValueError`."""
     rng = np.random.default_rng(0)
     M, F = 600, 5
     mc = np.stack([rng.uniform(8, 16, (M, F)), rng.uniform(0.4, 1.1, (M, F)),
@@ -231,8 +236,9 @@ def test_card_free_import_and_cpu_rehearsal():
     """With jax, h5py and brutus_tpu made unimportable, the package
     imports and `chip_smoke.py --cpu --tiny` runs its funnel paths, its
     dense path, the reference-semantics engines, the rest of
-    `BruteForce` and the integer grid-index path to the end (no module
-    of the card path needs them)."""
+    `BruteForce`, the integer grid-index path and the device mesh (two
+    gloo worlds of spawned processes) to the end (no module of the card
+    path needs them)."""
     code = (
         "import sys, runpy\n"
         "for m in ('jax', 'h5py', 'brutus_tpu'):\n"
@@ -253,5 +259,6 @@ def test_card_free_import_and_cpu_rehearsal():
     assert "phase 8 reference-semantics funnel" in r.stdout
     assert "phase 9 rest of BruteForce on the funnel" in r.stdout
     assert "phase 10 fallback past 2**24 models" in r.stdout
+    assert "phase 14 device mesh" in r.stdout
     assert "phase 7 rehearsal done on the CPU" in r.stdout
     assert '"platform": "gpu"' not in r.stdout

@@ -340,3 +340,56 @@ def test_mc_kernel_instances_match_plain(cuda, mode, flags):
     flags_t = TMC.tile_flags(args[2] > 0.5, 512)
     q = TMC.mc_integrate_plain(*args, z, flags_t, 50, 512, *cf)
     _assert_mc_close(k, q, args[2], pd)
+
+
+def _mesh_rank(rank, rdv, out_dir):
+    """A rank of `test_funnel_model_mesh_two_ranks_on_one_card`: the
+    funnel case of `tests/test_torch_parallel.py` on a 1 x 2 mesh, both
+    ranks on card 0 over gloo."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.ops import _native
+    from brutus_tpu_torch.parallel import make_mesh
+    import test_torch_parallel as TPL
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=240))
+    bf_args, args, kw, _ = TPL.fit_case("funnel_model_mesh")
+    mesh = make_mesh(1, 2, devices=["cuda:0"] * 2)
+    _native.reset_launches()
+    out = BruteForce(*bf_args, device="cuda").fit(*args, mesh=mesh, **kw)
+    launches = {k: v.launches for k, v in _native.KERNELS.items()}
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump((out, launches, mesh.transport()), f)
+    dist.destroy_process_group()
+
+
+def test_funnel_model_mesh_two_ranks_on_one_card(cuda, tmp_path):
+    """The funnel case of `tests/test_torch_parallel.py` on a 1 x 2 mesh,
+    two ranks on one card over gloo (CUDA tensors staged through host
+    memory; NCCL refuses two ranks on one device): each rank launches
+    K2, K3, K1 and K4 on its half of the grid and the merged
+    shortlists, and every output equals the single-process run on the
+    card bit for bit, on both ranks."""
+    import pickle
+    from brutus_tpu_torch import BruteForce
+    from brutus_tpu_torch.ops import _native
+    import test_torch_parallel as TPL
+    _native.build()                  # once, before the ranks load it
+    TPL.spawn_world(_mesh_rank, 2, (str(tmp_path / "rdv"), str(tmp_path)),
+                    TPL.WORLD_TIMEOUT)
+    bf_args, args, kw, _ = TPL.fit_case("funnel_model_mesh")
+    ref = BruteForce(*bf_args, device="cuda").fit(*args, **kw)
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            out, launches, transport = pickle.load(f)
+        print(f"rank {r}: launches {launches}, transport {transport}")
+        for k in ("screen", "gather", "fit", "mc_rng"):
+            assert launches[k] > 0, (r, k)
+        assert set(out) == set(ref)
+        for k in ref:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)

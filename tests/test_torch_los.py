@@ -24,6 +24,18 @@ PB = (-3.0, 0.7, -np.inf, 0.0)
 SP = (-3.0, 0.3, -np.inf, 0.0)
 
 
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the sampler tests' many small likelihood
+    calls (a copy of `tests/test_torch_cluster.py`'s fixture): with one
+    thread per core in each of the suite's worker processes, the threads
+    oversubscribe the host and these tests run many times longer."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sightline(seed, n_obj=40, n_samp=30):
     """Draws of a one-cloud sightline at dm = 9 (one draw at a negative
     distance, outside every segment) and per-star template values."""
@@ -146,7 +158,7 @@ def _one_cloud_sightline():
     return ds, rs
 
 
-def test_fit_clouds_recovers_cloud():
+def test_fit_clouds_recovers_cloud(two_threads):
     """`fit_clouds` on `test_fit_clouds_recovers_cloud`'s sightline (one
     cloud at dm = 10 with dAv = 1 over a 0.2 foreground) at short
     settings: the MAP finds the cloud within that test's limits, the
@@ -192,7 +204,7 @@ def _two_cloud_sightline():
     return ds, rs
 
 
-def test_fit_clouds_evidence_selects_two_clouds():
+def test_fit_clouds_evidence_selects_two_clouds(two_threads):
     """Evidence on `test_fit_clouds_evidence_selects_cloud_count`'s
     two-cloud sightline (dm 8 and 13) at short settings: the two-cloud
     log-evidence beats the one-cloud one by more than 5 nats and 3
@@ -244,7 +256,8 @@ def _jax_stream(seed, W, ndim, n_steps, K=None):
 
 
 @pytest.mark.parametrize("evidence", [False, True])
-def test_fit_clouds_follows_jax_step_for_step(monkeypatch, evidence):
+def test_fit_clouds_follows_jax_step_for_step(monkeypatch, evidence,
+                                              two_threads):
     """Given the JAX samplers' random numbers (the start and every
     half-step's draws), the port's `fit_clouds` follows the JAX
     function's chain step for step, with and without the evidence
@@ -277,7 +290,7 @@ def test_fit_clouds_follows_jax_step_for_step(monkeypatch, evidence):
         np.testing.assert_allclose(got["logz"], want["logz"], rtol=1e-5)
 
 
-def test_fit_clouds_matches_jax_as_a_distribution():
+def test_fit_clouds_matches_jax_as_a_distribution(two_threads):
     """With their own random streams, the port's and the JAX function's
     `fit_clouds` (one cloud on the one-cloud sightline, 64 walkers x
     1000 steps, 600 burn-in: the JAX package's own
