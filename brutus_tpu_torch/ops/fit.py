@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import FitConfig
+from ..utils import resolve_device
 from ._native import KERNELS, check
 from .funnel import _fit_params, fit_pack_plain, post_consts
 from .optimize import prepare_star_data
@@ -26,8 +27,9 @@ from .optimize import prepare_star_data
 def prepare_coeffs(mag_coeffs, tile=2048, device=None):
     """`(M, F, 3)` -> `(3, F, Mp)` float32 with `Mp` a multiple of
     `tile`, padded with copies of the last model made 60 mag fainter
-    (mirrors `pallas_loglike.prepare_coeffs`, :648-658).  Returns
-    `(coeffs_t, M)`."""
+    (mirrors `pallas_loglike.prepare_coeffs`, :648-658), on `device`
+    (default CUDA; without a card that raises, as `utils.resolve_device`
+    does).  Returns `(coeffs_t, M)`."""
     mc = np.asarray(mag_coeffs, dtype=np.float32)
     M = mc.shape[0]
     rem = (-M) % tile
@@ -36,7 +38,7 @@ def prepare_coeffs(mag_coeffs, tile=2048, device=None):
         pad[..., 0] += 60.0
         mc = np.concatenate([mc, pad], axis=0)
     ct = torch.from_numpy(np.ascontiguousarray(mc.transpose(2, 1, 0)))
-    return ct.to(device if device is not None else "cpu"), M
+    return ct.to(resolve_device(device)), M
 
 
 def icov_from_parts(parts):

@@ -27,7 +27,8 @@ off), as the JAX package traces them at `default_matmul_precision(
 `model` axis (`model_group`), as the JAX package's dense reference
 engine runs under GSPMD: every per-star reduction over the models (the
 convergence tests' maxima, the init cull's best) is taken over the
-whole grid by an all-reduce MAX, so each shard iterates as often, and
+whole grid by an all-reduce MAX, and `polish_k`'s best models are the
+whole grid's (`_top_models`), so each shard iterates as often, and
 reaches the values, that the whole grid would.
 """
 
@@ -37,7 +38,7 @@ import math
 import torch
 
 from ..config import FitConfig, LN2PI
-from ..parallel.mesh import all_reduce, group_size
+from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ..utils import chi2_logpdf, inverse3
 from .sed import get_seds_flux
 
@@ -386,6 +387,34 @@ def _flux_polish(flux, wt_flux, mcoeffs, init_arrays, keep,
 # (reference brutus/fitting.py:579-820 `loglike`)
 # ---------------------------------------------------------------------------
 
+def _top_models(lnl, k, group=None):
+    """The `k` best models of each star by `lnl (B, M)`, over the whole
+    grid on a model `group`: `(sel, in_top)`, `sel (B, k_local)` this
+    shard's candidates (local indices) and `in_top` which of them are
+    among the grid's best `k`.
+
+    Each of the `n` shards of `M_local` models (`shard_grid`'s layout:
+    shard `r` holds global models `r * M_local + j`; one process is one
+    shard) offers its best `min(k, M_local)`, which hold every one of
+    its models among the grid's best `k`; the offers' values are
+    all-gathered (exact) and the best `k` of their union taken.  Ties
+    at the `k`-th value go to the lower global model index, as
+    `lax.top_k` breaks them (the JAX package's `lax.approx_max_k` is
+    exact off the TPU): both selections are stable sorts, and the
+    gather lays the offers out by shard, each shard's in ascending
+    index among equal values, so an offer's position orders the global
+    indices of equal values."""
+    k_local = min(k, lnl.shape[-1])
+    val, sel = torch.sort(lnl, dim=-1, descending=True, stable=True)
+    val, sel = val[:, :k_local], sel[:, :k_local]
+    offers = all_gather(val, group, dim=1)       # (B, n * k_local)
+    best = torch.sort(offers, dim=-1, descending=True, stable=True).indices
+    top = torch.zeros_like(offers, dtype=torch.bool).scatter_(
+        1, best[:, :k], True)
+    r = group_rank(group)
+    return sel, top[:, r * k_local:(r + 1) * k_local]
+
+
 def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
                        parallax_err, av_init, rv_init, cfg: FitConfig,
                        group=None):
@@ -434,22 +463,19 @@ def _loglike_grid_body(flux, fluxerr, mask, mag_coeffs, parallax,
     # flux polish (fitting.py:777-810); culled models keep phase A
     const = -0.5 * (ndim * LN2PI + (torch.log(torch.where(
         mask, tot_var, torch.ones_like(tot_var))) * mask).sum(-1))
-    if cfg.polish_k and cfg.polish_k < M:
-        if group_size(group) > 1:
-            raise NotImplementedError("polish_k on a model-sharded grid")
-        # The JAX package takes `lax.approx_max_k`, which is exact off
-        # the TPU; this is the exact `topk`.
-        sel = torch.topk(lnl_p, cfg.polish_k, dim=-1).indices
+    if cfg.polish_k and cfg.polish_k < M * group_size(group):
+        sel, in_top = _top_models(lnl_p, cfg.polish_k, group)
         g = lambda x: torch.gather(x, 1, sel)
         rows = torch.arange(B, device=sel.device)[:, None]
         gm = lambda x: x[rows, sel]                  # (B, M, F) per star
         coef_k = (mag_coeffs[sel] if mag_coeffs.dim() == 3
                   else gm(mag_coeffs))
+        keep_k = g(keep) & in_top
         (chi2_f, scale_f, av_f, rv_f, icov_f, n_iter_flux) = _flux_polish(
             flux, wt_flux, coef_k,
             (gm(models), gm(rvecs), gm(drvecs), g(scale), g(av), g(rv),
-             tuple(g(p) for p in icov_parts), gm(resid)), g(keep), cfg)
-        keep_k = g(keep)
+             tuple(g(p) for p in icov_parts), gm(resid)), keep_k, cfg,
+            group)
         put = lambda full, new: full.scatter(
             1, sel, torch.where(keep_k, new, g(full)))
         lnl = put(lnl_mag, -0.5 * chi2_f + const[:, None])
@@ -490,9 +516,11 @@ def loglike_grid(flux, fluxerr, mask, mag_coeffs, parallax=math.nan,
     parallax_err : scalars or (B,), NaN where absent; av_init, rv_init :
     optional (M,) or (B, M) magnitude-phase seeds (default the prior
     means; ignored with `cfg.mag_direct_init`).  `cfg.polish_k > 0`
-    polishes the best `polish_k` models of each star (exact `topk`).
+    polishes the best `polish_k` models of each star (exact top-k).
     `model_group`: `mag_coeffs` is this shard's slice of a grid sharded
-    over that group (module docstring; not with `polish_k`).
+    over that group (module docstring); `polish_k` then counts the
+    group's models, and its best models are the whole grid's
+    (`_top_models`, which says how ties are broken).
 
     Returns a dict: `lnlike, chi2, scale, av, rv` (M,) / (B, M),
     `icov_parts` the 6 precision parts, `ndim`, and `n_iter`, the

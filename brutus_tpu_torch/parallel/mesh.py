@@ -34,10 +34,17 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=600)
 
 
-def _default_device():
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _default_device(world):
+    """A rank's device when `make_mesh` is not given `devices`: its
+    current CUDA device.  Without a card this raises, as
+    `utils.resolve_device(None)` does: a CPU mesh is asked for by
+    naming its devices."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "make_mesh: brutus_tpu_torch runs on CUDA devices by default "
+            "and none is available; pass devices=['cpu'] * "
+            f"{world} for a mesh on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def initialize(coordinator_address=None, num_processes=None,
@@ -173,8 +180,9 @@ def make_mesh(n_data=None, n_model=None, devices=None):
     `brutus_tpu.parallel.make_mesh`: by default every rank on the model
     axis; `ValueError` when the sizes do not multiply to the device
     count).  One rank runs per device: `devices` lists each rank's
-    device (default: each rank's current CUDA device, else the CPU),
-    and its length must equal the world size.  Every rank of the world
+    device (default: each rank's current CUDA device; without a card
+    that raises, and a CPU mesh is `devices=["cpu"] * world_size`), and
+    its length must equal the world size.  Every rank of the world
     calls this together."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
@@ -186,7 +194,7 @@ def make_mesh(n_data=None, n_model=None, devices=None):
         raise ValueError(f"mesh over {len(devices)} devices needs one rank "
                          f"per device; this world has {world}")
     mine = (torch.device(devices[rank]) if devices[rank] is not None
-            else _default_device())
+            else _default_device(world))
     devices = [mine if i == rank else d for i, d in enumerate(devices)]
     return Mesh(n_data, n_model, mine, devices)
 

@@ -114,10 +114,17 @@ Phases, each printing one line with its elapsed seconds:
    models, the block shortlists merged) on phase 4's stars, (c) the
    funnel and the dense engine on 2 x 1 (the stars split) on phase 4's
    and phase 6's first 64, (d) the reference-semantics funnel and dense
-   engine on 1 x 2 on phase 8's.  Each held against the single
-   process's rows in `MESH_KEYS`: equal bit for bit, or within the JAX
-   package's limits (`MESH_EVID_TOL`, `MESH_CHI2_TOL`, `MESH_AGREE`)
-   with the reason printed; every rank must launch its path's kernels
+   engine on 1 x 2 on phase 8's, and `ops.optimize.loglike_grid` with
+   `polish_k=2048` (`MESH_POLISH_K`) on 1 x 2 on phase 8's first 16
+   stars with their parallaxes, the grid cut by `shard_grid`, with the
+   init cull and without it (`MESH_POLISH_CULL`).  Each
+   fit held against the single process's rows in `MESH_KEYS`: equal
+   bit for bit, or within the JAX package's limits (`MESH_EVID_TOL`,
+   `MESH_CHI2_TOL`, `MESH_AGREE`) with the reason printed; the
+   `polish_k` call's rank rows against one process's call on the whole
+   grid on the card, every field of `MESH_POLISH_KEYS` bit for bit
+   (with its max |dev|, both calls' seconds and the iteration counts
+   printed); every rank must launch its path's kernels
    (`MESH_KERNELS`), whose counts go to the `kernels` line as phase 14;
    stars/s per path, the slab all-reduce's time, the transport;
 7. last, a `kernels` JSON line: each kernel's launches during the path
@@ -2107,7 +2114,16 @@ MESH_DIR = os.path.join("build", "phase14")
 # The kernels each path must launch on every rank.
 MESH_KERNELS = dict(funnel=("screen", "gather", "fit", "mc_rng"),
                     dense=("fit_dense",), xla_funnel=("screen", "gather"),
-                    xla_dense=())
+                    xla_dense=(), polish=(), polish_nocull=())
+# The `polish` jobs: `ops.optimize.loglike_grid` with this `polish_k`
+# on a model-sharded grid (its job's `n_sel` field), with the init cull
+# (`apply_init_cull`) by path: with it, only the models near a star's
+# best are polished, which may all lie in every shard's offer; without
+# it, exactly the global top `polish_k` are, so the rows depend on the
+# merged selection.  The fields the ranks' rows must equal bit for bit.
+MESH_POLISH_K = 2048
+MESH_POLISH_CULL = dict(polish=True, polish_nocull=False)
+MESH_POLISH_KEYS = ("lnlike", "chi2", "scale", "av", "rv", "n_iter")
 
 
 def mesh_jobs(tiny, four=False):
@@ -2115,8 +2131,9 @@ def mesh_jobs(tiny, four=False):
     n_sel, engine)`, the stars given as `(n, seed, first n)` of
     `stars()`.  The single card's worlds: (b) the funnel on 1 x 2, (c)
     the funnel and the dense fused engine on 2 x 1, (d) the
-    reference-semantics funnel and dense engine on 1 x 2; with `four`,
-    the four cards' 1 x 4, 2 x 2 and 4 x 1 meshes instead."""
+    reference-semantics funnel and dense engine and `loglike_grid(
+    polish_k=MESH_POLISH_K)` on 1 x 2; with `four`, the four cards'
+    1 x 4, 2 x 2 and 4 x 1 meshes instead."""
     n4, b4, k, ns = (16, 8, 1024, 256) if tiny else (512, 128, 12288, 2048)
     n6, b6, f6 = (16, 8, 8) if tiny else (256, 16, 64)
     n8, b8, c8, bc8 = (16, 8, 8, 8) if tiny else (128, 128, 16, 8)
@@ -2124,6 +2141,7 @@ def mesh_jobs(tiny, four=False):
     dense = ((n6, 7, f6), b6, 0, ns, None)
     xfun = ((n8, 9, n8), b8, k, 2048, "xla")
     xdense = ((n8, 9, c8), bc8, 0, 2048, "xla")
+    polish = ((n8, 9, c8), c8, 0, MESH_POLISH_K, None)
     if four:
         nb, bb = (64, 32) if tiny else (32768, 1024)
         big = ((nb, 7, nb), bb, k, ns, None)
@@ -2134,12 +2152,18 @@ def mesh_jobs(tiny, four=False):
                 (f"funnel 1x4, {nb} stars", "funnel", (1, 4)) + big,
                 ("dense 4x1", "dense", (4, 1)) + dense,
                 ("xla funnel 1x4", "xla_funnel", (1, 4)) + xfun,
-                ("xla dense 1x4", "xla_dense", (1, 4)) + xdense]
+                ("xla dense 1x4", "xla_dense", (1, 4)) + xdense,
+                ("polish_k 1x4", "polish", (1, 4)) + polish,
+                ("polish_k 1x4, no init cull", "polish_nocull", (1, 4))
+                + polish]
     return [("(b) funnel 1x2", "funnel", (1, 2)) + fun,
             ("(c) funnel 2x1", "funnel", (2, 1)) + fun,
             ("(c) dense 2x1", "dense", (2, 1)) + dense,
             ("(d) xla funnel 1x2", "xla_funnel", (1, 2)) + xfun,
-            ("(d) xla dense 1x2", "xla_dense", (1, 2)) + xdense]
+            ("(d) xla dense 1x2", "xla_dense", (1, 2)) + xdense,
+            ("(d) polish_k 1x2", "polish", (1, 2)) + polish,
+            ("(d) polish_k 1x2, no init cull", "polish_nocull", (1, 2))
+            + polish]
 
 
 def mesh_stars(mc, spec):
@@ -2148,19 +2172,44 @@ def mesh_stars(mc, spec):
     return {k: (v[:first] if np.ndim(v) else v) for k, v in s.items()}
 
 
+def polish_call(mag_coeffs, s, k, cull, group=None):
+    """`ops.optimize.loglike_grid` of the stars `s` (with their
+    parallaxes) against `mag_coeffs` (this rank's shard on a model
+    `group`) with `polish_k=k` and `apply_init_cull=cull`: the fields
+    of `MESH_POLISH_KEYS` on the host and the call's seconds to its
+    final synchronise."""
+    from brutus_tpu_torch.config import FitConfig
+    from brutus_tpu_torch.ops.optimize import loglike_grid
+    dev = mag_coeffs.device
+    t = lambda x: torch.as_tensor(np.asarray(x), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    out = loglike_grid(t(s["flux"]), t(s["err"]),
+                       t(np.ones(s["flux"].shape, bool)), mag_coeffs,
+                       parallax=t(s["plx"]), parallax_err=t(s["plxe"]),
+                       cfg=FitConfig(polish_k=k, apply_init_cull=cull),
+                       model_group=group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    return {f: out[f].cpu().numpy() for f in MESH_POLISH_KEYS}, dt
+
+
 def mesh_worker(rank, world, backend, device_type, rdv, jobs, out_dir,
                 threads):
     """One rank of a phase-14 world (a spawned process): joins the world
     (`backend` over a file rendezvous), loads the kernels the parent
     built and the grid it wrote, and runs `jobs` on their meshes, on a
     CUDA device (rank modulo the card count) or the CPU.  Rank 0 saves
-    each fit's results; every rank saves its seconds, launch counts and
-    the time of its model-axis all-reduces (the funnel's slab merge)."""
+    each fit's results (every rank its rows of a `polish` job); every
+    rank saves its seconds, launch counts and the time of its
+    model-axis all-reduces (the funnel's slab merge)."""
     import datetime
     import torch.distributed as dist
     from brutus_tpu_torch import BruteForce
     from brutus_tpu_torch.ops import _native, funnel
-    from brutus_tpu_torch.parallel import initialize, make_mesh
+    from brutus_tpu_torch.parallel import initialize, make_mesh, shard_grid
     from brutus_tpu_torch.parallel import mesh as pmesh
     torch.set_num_threads(threads)
     cuda = device_type == "cuda"
@@ -2193,15 +2242,29 @@ def mesh_worker(rank, world, backend, device_type, rdv, jobs, out_dir,
     dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
            else torch.device("cpu"))
     rec, meshes = {}, {}
-    for name, _path, shape, spec, batch, screen_k, n_sel, engine in jobs:
+    for name, path, shape, spec, batch, screen_k, n_sel, engine in jobs:
         # one mesh per shape, made by every rank in job order: a new mesh
         # makes new process groups, whose first collective sets up its
         # communicator
         if shape not in meshes:
             meshes[shape] = make_mesh(*shape, devices=[dev] * world)
         mesh = meshes[shape]
-        bf = BruteForce(mc, labels, device=mesh.device)
         s = mesh_stars(mc, spec)
+        if path in MESH_POLISH_CULL:
+            local = shard_grid(mesh, mc)[0]
+            _native.reset_launches()
+            dist.barrier()
+            rows, dt = polish_call(local, s, n_sel, MESH_POLISH_CULL[path],
+                                   mesh.get_group("model"))
+            rec[name] = dict(seconds=dt, transport=mesh.transport(),
+                             launches={k: v.launches for k, v
+                                       in _native.KERNELS.items()},
+                             slab=dict(seconds=0.0, calls=0, bytes=0),
+                             coords=mesh.coords)
+            np.savez(os.path.join(out_dir, f"{name}.rank{rank}.npz"), **rows)
+            del local
+            continue
+        bf = BruteForce(mc, labels, device=mesh.device)
         kw = fit_kwargs(s, batch, screen_k, n_sel, return_results=True,
                         mesh=mesh, **({} if engine is None
                                       else dict(engine=engine)))
@@ -2255,8 +2318,13 @@ def mesh_world(n, backend, device_type, jobs, out_dir, threads=2):
             recs.append(json.load(f))
     outs = {}
     for job in jobs:
-        with np.load(os.path.join(out_dir, f"{job[0]}.npz")) as z:
-            outs[job[0]] = {k: z[k] for k in z.files}
+        files = ([f"{job[0]}.rank{r}.npz" for r in range(n)]
+                 if job[1] in MESH_POLISH_CULL else [f"{job[0]}.npz"])
+        parts = []
+        for fname in files:
+            with np.load(os.path.join(out_dir, fname)) as z:
+                parts.append({k: z[k] for k in z.files})
+        outs[job[0]] = parts if job[1] in MESH_POLISH_CULL else parts[0]
     return recs, outs
 
 
@@ -2289,6 +2357,52 @@ def mesh_compare(out, ref, n_model):
                                               and agree > MESH_AGREE))))
 
 
+def polish_compare(parts, ref, shape):
+    """The ranks' rows of a `polish` job (in rank order, which is the
+    model order of `shard_grid` on a `1 x n` mesh) against one
+    process's call: each field's max |dev| over the real models (the
+    per-star `n_iter` of every rank) and whether all are equal bit for
+    bit."""
+    assert shape[0] == 1
+    n = ref["lnlike"].shape[-1]
+    dev = {}
+    for f in MESH_POLISH_KEYS:
+        if f == "n_iter":
+            got = np.stack([p[f] for p in parts])
+            want = np.broadcast_to(ref[f], got.shape)
+        else:
+            got = np.concatenate([p[f] for p in parts], axis=-1)[..., :n]
+            want = ref[f]
+        same = np.array_equal(got, want, equal_nan=True)
+        d = np.abs(got.astype(float) - want.astype(float))
+        dev[f] = 0.0 if same else float(np.nanmax(np.where(
+            np.isnan(d), np.inf, d)))
+    return dict(equal=all(v == 0.0 for v in dev.values()), dev=dev)
+
+
+def polish_report(name, path, per, parts, ref, shape, worlds):
+    """Log a `polish` job against one process's call and raise unless
+    every field is equal bit for bit."""
+    cmp = polish_compare(parts, ref["rows"], shape)
+    secs = max(p["seconds"] for p in per)
+    it = ref["rows"]["n_iter"]
+    log(f"  phase 14 {name} ({worlds}): ops.optimize.loglike_grid, "
+        f"polish_k={MESH_POLISH_K}, apply_init_cull="
+        f"{MESH_POLISH_CULL[path]}, {len(it)} stars x "
+        f"{ref['rows']['lnlike'].shape[-1]} models, one process "
+        f"{ref['seconds']:.3f} s, the mesh {secs:.3f} s (transport "
+        f"{per[0]['transport']}); iterations (magnitude, flux) per star "
+        f"{it.tolist()}; max |dev| of the rank rows against one process "
+        f"{cmp['dev']}: "
+        + ("equal bit for bit" if cmp["equal"] else "NOT equal"))
+    if not cmp["equal"]:
+        raise AssertionError(f"phase 14 {name}: the rank rows differ from "
+                             f"one process's loglike_grid")
+    return dict(cmp=dict(cmp, agree=1.0), stars_per_s=len(it) / secs,
+                seconds=secs, one_seconds=ref["seconds"],
+                slab=per[0]["slab"], launches=[p["launches"] for p in per])
+
+
 def mesh_report(recs, outs, jobs, refs, n_model, worlds, cuda=True):
     """Check and log each job of a world (on `cuda`, each rank must have
     launched its path's kernels); returns the summed launches and the
@@ -2305,6 +2419,10 @@ def mesh_report(recs, outs, jobs, refs, n_model, worlds, cuda=True):
         for p in per:
             for k, v in p["launches"].items():
                 total[k] = total.get(k, 0) + v
+        if path in MESH_POLISH_CULL:
+            res[name] = polish_report(name, path, per, outs[name],
+                                      refs[name], shape, worlds)
+            continue
         n = len(outs[name]["model_idx"])
         cmp = mesh_compare(outs[name], refs[name], n_model)
         secs = max(p["seconds"] for p in per)
@@ -2351,6 +2469,7 @@ def phase_mesh(mc, labels, dev, tiny, runs, xla):
             None)]
     jobs = mesh_jobs(tiny)
     refs = mesh_refs(one + jobs, runs, xla)
+    refs.update(polish_refs(jobs, mc, dev))
     t0 = time.time()
     recs, outs = mesh_world(1, "nccl" if dev.type == "cuda" else "gloo",
                             dev.type, one, out_dir)
@@ -2368,13 +2487,33 @@ def phase_mesh(mc, labels, dev, tiny, runs, xla):
 
 
 def mesh_refs(jobs, runs, xla):
-    """The single process's rows of each phase-14 job: phase 4 (funnel),
+    """The single process's rows of each phase-14 fit: phase 4 (funnel),
     6 (dense), 8 (the reference-semantics engines)."""
     src = dict(funnel=runs[4]["out"], dense=runs[6]["out"],
                xla_funnel=xla["funnel"]["out"],
                xla_dense=xla["dense_fit"]["out"])
     return {name: {k: src[path][k][:spec[2]] for k in MESH_KEYS}
-            for name, path, shape, spec, *_ in jobs}
+            for name, path, shape, spec, *_ in jobs
+            if path not in MESH_POLISH_CULL}
+
+
+def polish_refs(jobs, mc, dev):
+    """One process's `polish_call` on the whole grid on `dev` for each
+    `polish` job: its rows and the seconds of a warm call (the first
+    call is not timed)."""
+    refs = {}
+    grid = torch.as_tensor(mc, device=dev)
+    for name, path, shape, spec, batch, screen_k, n_sel, engine in jobs:
+        if path in MESH_POLISH_CULL:
+            s = mesh_stars(mc, spec)
+            cull = MESH_POLISH_CULL[path]
+            polish_call(grid, s, n_sel, cull)
+            rows, dt = polish_call(grid, s, n_sel, cull)
+            refs[name] = dict(rows=rows, seconds=dt)
+    del grid
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return refs
 
 
 def mesh_main(dev, tiny):
@@ -2404,8 +2543,11 @@ def mesh_main(dev, tiny):
     jobs = mesh_jobs(tiny, four=True)
     refs, ones = {}, {}
     bf = BruteForce(mc, labels, device=dev)
+    refs.update(polish_refs(jobs, mc, dev))
     for name, path, shape, spec, batch, screen_k, n_sel, engine in jobs:
         key = (path, spec, batch)
+        if path in MESH_POLISH_CULL:
+            continue
         if key not in ones:
             s = mesh_stars(mc, spec)
             extra = {} if engine is None else dict(engine=engine)
@@ -3181,7 +3323,8 @@ def main():
     t0 = time.time()
     runs[14] = phase_mesh(mc, labels, dev, args.tiny, runs, x)
     j = runs[14]["jobs"]
-    log(f"phase 14 device mesh: BruteForce.fit(mesh=...) on {M} models, "
+    log(f"phase 14 device mesh: BruteForce.fit(mesh=...) and "
+        f"loglike_grid(polish_k=..., model_group=...) on {M} models, "
         f"(a) a world of one over "
         f"{'NCCL' if dev.type == 'cuda' else 'gloo'} "
         f"({j['world_one_s']:.1f} s), (b)-(d) two ranks on one "

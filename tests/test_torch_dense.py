@@ -31,9 +31,21 @@ def test_prepare_coeffs_matches(M, tile):
     """The `(3, F, Mp)` layout and its +60 mag padding, bit for bit."""
     mc = _problem(M, 8, 2, 3)["mc"]
     ref, n_ref = PL.prepare_coeffs(mc, tile=tile)
-    out, n = TFD.prepare_coeffs(mc, tile=tile)
+    out, n = TFD.prepare_coeffs(mc, tile=tile, device="cpu")
     assert n == n_ref == M
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_prepare_coeffs_defaults_to_the_card(monkeypatch):
+    """Without `device` the table goes to CUDA, as `pallas_loglike.
+    prepare_coeffs` puts it on the default (accelerator) device; without
+    a card that raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mc = _problem(64, 8, 2, 3)["mc"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TFD.prepare_coeffs(mc, tile=32)
+    out, n = TFD.prepare_coeffs(mc, tile=32, device="cpu")
+    assert out.device.type == "cpu" and n == 64
 
 
 def _fields(res):
@@ -62,7 +74,7 @@ def test_dense_fit_matches(dim_prior):
                                 jnp.asarray(p["err"]),
                                 jnp.asarray(p["mask"]), ct, cfg=cfg,
                                 tile=128, interpret=True, n_real=n_real)
-    tct, _ = TFD.prepare_coeffs(p["mc"], tile=128)
+    tct, _ = TFD.prepare_coeffs(p["mc"], tile=128, device="cpu")
     out = TFD.loglike_grid_fused(
         torch.as_tensor(p["flux"]), torch.as_tensor(p["err"]),
         torch.as_tensor(p["mask"]), tct,

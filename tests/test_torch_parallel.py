@@ -35,6 +35,7 @@ from brutus_tpu_torch import parallel as TPAR
 from brutus_tpu_torch.parallel.mesh import _mesh_shape
 
 WORLD = 4
+CPUS = ["cpu"] * WORLD            # a CPU mesh names its devices
 WORLD_TIMEOUT = 240.0
 NFILT = 8
 COORD = np.array([204.7, -19.2])
@@ -219,6 +220,41 @@ ERRORS = {
 SEL = dict(B=8, nblocks=64, nb=12, block=8)
 
 
+# `loglike_grid(polish_k=...)` on a model-sharded grid: the JAX test
+# grid's first 250 models (padded to 252 over 4 shards of 63), its 4
+# stars with parallaxes; 100 exceeds a shard's 63 models.  With the
+# init cull on, only models within `init_thresh` of a star's best are
+# polished, a few here, all among the best 40; with it off, every model
+# is kept and the best `k` alone are polished, so the rows depend on
+# which models the global top-k takes.
+POLISH_K = (40, 100)
+POLISH_CASES = tuple((k, cull) for cull in (True, False) for k in POLISH_K)
+POLISH_M = 250
+POLISH_PLX = (1.0, 0.05)
+POLISH_FIELDS = ("lnlike", "chi2", "scale", "av", "rv", "ndim", "n_iter")
+
+
+def polish_rows(mag_coeffs, case, group=None):
+    """`ops.optimize.loglike_grid` of `jax_test_stars` against
+    `mag_coeffs` (this shard's, on a model `group`), with the case's
+    `(polish_k, apply_init_cull)`, as numpy arrays (the 6 precision
+    parts stacked as `icov`)."""
+    from brutus_tpu_torch.config import FitConfig
+    from brutus_tpu_torch.ops.optimize import loglike_grid
+    data, errs, mask, _ = jax_test_stars(jax_test_grid()[0])
+    n = len(data)
+    t = torch.as_tensor
+    out = loglike_grid(t(data), t(errs), t(mask), t(mag_coeffs),
+                       parallax=t(np.full(n, POLISH_PLX[0])),
+                       parallax_err=t(np.full(n, POLISH_PLX[1])),
+                       cfg=FitConfig(polish_k=case[0],
+                                     apply_init_cull=case[1]),
+                       model_group=group)
+    rec = {f: out[f].numpy() for f in POLISH_FIELDS}
+    rec["icov"] = torch.stack(out["icov_parts"]).numpy()
+    return rec
+
+
 def select_scores():
     rng = np.random.default_rng(41)
     return rng.normal(size=(SEL["B"], WORLD * SEL["nblocks"])).astype(
@@ -253,14 +289,14 @@ def _world_main(rank, rdv, out_dir):
         rec[name + ":seconds"] = time.time() - t0
 
     def meshes():
-        m = TPAR.make_mesh()
+        m = TPAR.make_mesh(devices=CPUS)
         out = dict(default=(dict(m.shape), m.coords))
-        m = TPAR.make_mesh(n_data=2)
+        m = TPAR.make_mesh(n_data=2, devices=CPUS)
         out["n_data=2"] = (dict(m.shape), m.coords)
-        m = TPAR.make_mesh(n_model=1)
+        m = TPAR.make_mesh(n_model=1, devices=CPUS)
         out["n_model=1"] = (dict(m.shape), m.coords)
         try:
-            TPAR.make_mesh(n_data=3)
+            TPAR.make_mesh(n_data=3, devices=CPUS)
         except ValueError as err:
             out["n_data=3"] = str(err)
         return out
@@ -268,13 +304,13 @@ def _world_main(rank, rdv, out_dir):
 
     def shards():
         mc, _, _ = jax_test_grid()
-        mesh = TPAR.make_mesh(n_data=1, n_model=WORLD)
+        mesh = TPAR.make_mesh(n_data=1, n_model=WORLD, devices=CPUS)
         dev, (lab,), n = TPAR.shard_grid(mesh, mc[:250], np.arange(250.0))
         return dev.numpy(), lab.numpy(), n
     run("shard_grid", shards)
 
     def select():
-        mesh = TPAR.make_mesh(n_data=1, n_model=WORLD)
+        mesh = TPAR.make_mesh(n_data=1, n_model=WORLD, devices=CPUS)
         nbl = SEL["nblocks"]
         local = torch.as_tensor(select_scores()[:, rank * nbl:
                                                 (rank + 1) * nbl])
@@ -283,9 +319,19 @@ def _world_main(rank, rdv, out_dir):
         return bidx.numpy(), idx.numpy(), mine.numpy()
     run("select_blocks", select)
 
+    def polish():
+        """`loglike_grid(polish_k=...)` on the 1 x 4 mesh, each rank on
+        its 63 of the 252 padded models."""
+        mc, _, _ = jax_test_grid()
+        mesh = TPAR.make_mesh(n_data=1, n_model=WORLD, devices=CPUS)
+        local, _, _ = TPAR.shard_grid(mesh, mc[:POLISH_M])
+        return {c: polish_rows(local, c, mesh.get_group("model"))
+                for c in POLISH_CASES}
+    run("dense_polish_k", polish)
+
     def fit(name, save_file=None):
         bf_args, args, kw, shape = fit_case(name)
-        mesh = TPAR.make_mesh(*shape)
+        mesh = TPAR.make_mesh(*shape, devices=CPUS)
         bf = BruteForce(*bf_args, device="cpu")
         return bf.fit(*args, mesh=mesh, save_file=save_file, **kw)
     for name in FIT_CASES:
@@ -298,7 +344,7 @@ def _world_main(rank, rdv, out_dir):
         """The reference-semantics funnel's shortlists on the 2 x 2
         mesh, every rank on all stars."""
         mc, labels, flux, err, dist = xla_funnel_problem()
-        mesh = TPAR.make_mesh(n_data=2, n_model=2)
+        mesh = TPAR.make_mesh(n_data=2, n_model=2, devices=CPUS)
         tabs = from_numpy_grid(mc, labels, device="cpu",
                                lnprior=np.zeros(len(mc)), n_shards=2,
                                shard=mesh.coords[1])
@@ -320,7 +366,7 @@ def _world_main(rank, rdv, out_dir):
         mc, labels, lmask = jax_test_grid()
         data, errs, mask, coords = jax_test_stars(mc)
         for name, (shape, kw, _, _) in ERRORS.items():
-            mesh = TPAR.make_mesh(*shape)
+            mesh = TPAR.make_mesh(*shape, devices=CPUS)
             k = dict(base_kw(4), **kw)
             try:
                 BruteForce(mc, labels, lmask, device="cpu").fit(
@@ -450,6 +496,19 @@ def test_initialize_single_process(monkeypatch):
         TPAR.make_mesh(devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="coordinator"):
         TPAR.initialize(num_processes=2, process_id=0)
+
+
+def test_make_mesh_without_devices_needs_a_card(monkeypatch):
+    """`make_mesh()` without `devices` puts each rank on its current
+    CUDA device; without a card it raises, naming the CPU mesh's
+    `devices`, instead of falling back to the CPU (as
+    `utils.resolve_device(None)` does)."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"devices=\['cpu'\] \* 1"):
+        TPAR.make_mesh()
+    assert TPAR.make_mesh(devices=["cpu"]).device == torch.device("cpu")
 
 
 def test_placements():
@@ -722,6 +781,80 @@ def test_save_file_written_by_first_rank(world, two_threads, tmp_path):
             np.testing.assert_array_equal(g, w, err_msg=k)
 
 
+def _polish_shards(world, case):
+    """The four ranks' rows of a `POLISH_CASES` case, concatenated along
+    the models (rank order is `shard_grid`'s), with each rank's
+    star-side fields."""
+    parts = [_got(world, "dense_polish_k", r)[case] for r in range(WORLD)]
+    assert all(p["lnlike"].shape == (4, 63) for p in parts)
+    cat = {f: np.concatenate([p[f] for p in parts], axis=-1)
+           for f in ("lnlike", "chi2", "scale", "av", "rv", "icov")}
+    return cat, parts
+
+
+@pytest.mark.parametrize("k,cull", POLISH_CASES)
+def test_loglike_grid_polish_k_model_mesh(world, two_threads, k, cull):
+    """`loglike_grid(polish_k=k)` on a 1 x 4 mesh (250 models padded to
+    252, 63 a shard; k=100 exceeds a shard), with the init cull on and
+    off: on the real models every field of the ranks' rows equals the
+    single-process call on the unpadded grid bit for bit, and every
+    rank's iteration counts and `ndim` equal it (the global top-k and
+    the polish's convergence maxima are over the same models as one
+    process's).  The padding (60 mag fainter) is never among the best k
+    here."""
+    cat, parts = _polish_shards(world, (k, cull))
+    mc, _, _ = jax_test_grid()
+    ref = polish_rows(mc[:POLISH_M], (k, cull))
+    assert (ref["n_iter"][:, 1] > 1).all()
+    for f in ("lnlike", "chi2", "scale", "av", "rv", "icov"):
+        np.testing.assert_array_equal(cat[f][..., :POLISH_M], ref[f],
+                                      err_msg=f)
+    for p in parts:
+        np.testing.assert_array_equal(p["n_iter"], ref["n_iter"])
+        np.testing.assert_array_equal(p["ndim"], ref["ndim"])
+
+
+@pytest.mark.parametrize("k,cull", POLISH_CASES)
+def test_loglike_grid_polish_k_model_mesh_matches_jax(world, k, cull):
+    """The ranks' `polish_k=k` rows (init cull on and off) against the
+    JAX package's
+    `loglike_grid`, `jax.vmap`ped and jitted on the same 252-model grid
+    sharded `P("model")` over 4 of conftest's virtual CPU devices (GSPMD
+    makes its top-k global): equal `n_iter` and `ndim`, every other
+    field on all 252 models within rtol 1e-9 / atol 1e-9 (`tests/
+    test_torch_optimize.py::test_batched_loglike_matches_vmapped_jax`'s
+    limits)."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from brutus_tpu.config import FitConfig as JFitConfig
+    from brutus_tpu.ops import optimize as JO
+    from brutus_tpu.parallel import make_mesh as j_make_mesh
+    from brutus_tpu.parallel import shard_grid as j_shard_grid
+    cat, parts = _polish_shards(world, (k, cull))
+    mc, _, _ = jax_test_grid()
+    data, errs, mask, _ = jax_test_stars(mc)
+    jm = j_make_mesh(n_data=1, n_model=WORLD, devices=jax.devices()[:WORLD])
+    grid, _, n = j_shard_grid(jm, mc[:POLISH_M])
+    assert n == POLISH_M and grid.shape[0] == 252
+    assert grid.sharding.is_equivalent_to(
+        NamedSharding(jm, P("model")), grid.ndim)
+    cfg = JFitConfig(polish_k=k, apply_init_cull=cull)
+    fn = jax.jit(jax.vmap(lambda f, e, m, g: JO.loglike_grid(
+        f, e, m, g, parallax=POLISH_PLX[0], parallax_err=POLISH_PLX[1],
+        cfg=cfg), in_axes=(0, 0, 0, None)))
+    ref = fn(jnp.asarray(data), jnp.asarray(errs), jnp.asarray(mask), grid)
+    for p in parts:
+        np.testing.assert_array_equal(p["n_iter"], np.asarray(ref["n_iter"]))
+        np.testing.assert_array_equal(p["ndim"], np.asarray(ref["ndim"]))
+    for f in ("lnlike", "chi2", "scale", "av", "rv"):
+        np.testing.assert_allclose(cat[f], np.asarray(ref[f]), rtol=1e-9,
+                                   atol=1e-9, err_msg=f)
+    np.testing.assert_allclose(
+        cat["icov"], np.stack([np.asarray(x) for x in ref["icov_parts"]]),
+        rtol=1e-9, atol=1e-9)
+
+
 @pytest.mark.parametrize("name", sorted(ERRORS))
 def test_mesh_errors(world, name):
     """The errors of `brutus_tpu/fitting.py:763-775`, on every rank: the
@@ -744,7 +877,7 @@ def _two_process_main(rank, rdv, out_dir):
     torch.set_num_threads(1)
     TPAR.initialize(coordinator_address=f"file://{rdv}", num_processes=2,
                     process_id=rank)
-    mesh = TPAR.make_mesh(n_data=1, n_model=2)
+    mesh = TPAR.make_mesh(n_data=1, n_model=2, devices=["cpu"] * 2)
     local, _, _ = TPAR.shard_grid(mesh, np.arange(8.0)[:, None, None])
     total = all_reduce(local.sum(), "sum", mesh.get_group("model"))
     with open(os.path.join(out_dir, f"psum{rank}.txt"), "w") as f:
