@@ -56,6 +56,9 @@ true float32 while a group is launched: the screen's sums need it
 (bf16-level noise scrambled the shortlist on the TPU,
 `pallas_loglike.py:467-472`), and the reference engine's sums too
 (the JAX package traces them at "highest" precision).
+
+Inside a `torch.profiler` session, `fit` marks its stages with the
+`bf.*` spans and keeps its counters (`profiling`; README lists them).
 """
 
 import math
@@ -66,6 +69,7 @@ import warnings
 import numpy as np
 import torch
 
+from . import profiling
 from .config import (FitConfig, PosteriorConfig, GalPriorConfig,
                      DustPriorConfig)
 from .convert import (from_numpy_grid, dense_tables, reference_tables,
@@ -147,8 +151,9 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
         pack[:, names.index("lnlike")] += ext_at(gidx)
     P = pack.shape[2]
     custom = lngalprior is not None or lndustprior is not None
-    noise = draw_noise(seed, rows, selection_size(post_cfg, P), post_cfg,
-                       pack.device, grid=custom)
+    with profiling.span("bf.noise"):
+        noise = draw_noise(seed, rows, selection_size(post_cfg, P),
+                           post_cfg, pack.device, grid=custom)
     kw = dict(parallax=plx, parallax_err=plx_err, dust_profile=dust_profile,
               cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
               apply_av_prior=apply_av_prior)
@@ -161,10 +166,11 @@ def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
                    icov_parts=tuple(row[n] for n in ("i00", "i11", "i22",
                                                      "i01", "i02", "i12")),
                    ndim=res["ndim"])
-    return lnpost_grid(results, row["lnprior"], coord, noise,
-                       feh=row.get("feh"), loga=row.get("loga"),
-                       global_idx=gidx, lngalprior=lngalprior,
-                       lndustprior=lndustprior, **kw)
+    with profiling.span("bf.posterior"):
+        return lnpost_grid(results, row["lnprior"], coord, noise,
+                           feh=row.get("feh"), loga=row.get("loga"),
+                           global_idx=gidx, lngalprior=lngalprior,
+                           lndustprior=lndustprior, **kw)
 
 
 def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
@@ -175,19 +181,22 @@ def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
     _build_step`, engine "fused" without the funnel): K1 over the whole
     grid, then `lnpost_grid`; the external prior is added over the
     padded grid, zero on the padding (`fitting.py:857-860`)."""
-    res = loglike_grid_fused(flux, err, mask, tables.coeffs, cfg=fit_cfg,
-                             tile=tile, n_real=tables.n_real)
+    with profiling.span("bf.likelihood"):
+        res = loglike_grid_fused(flux, err, mask, tables.coeffs,
+                                 cfg=fit_cfg, tile=tile,
+                                 n_real=tables.n_real)
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(None)
     M = res["lnlike"].shape[1]
     noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        tables.coeffs.device, grid=True)
-    return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
-                       parallax_err=plx_err, feh=tables.feh,
-                       loga=tables.loga, dust_profile=dust_profile,
-                       cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-                       apply_av_prior=apply_av_prior,
-                       lngalprior=lngalprior, lndustprior=lndustprior)
+    with profiling.span("bf.posterior"):
+        return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
+                           parallax_err=plx_err, feh=tables.feh,
+                           loga=tables.loga, dust_profile=dust_profile,
+                           cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
+                           apply_av_prior=apply_av_prior,
+                           lngalprior=lngalprior, lndustprior=lndustprior)
 
 
 def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
@@ -197,24 +206,26 @@ def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
     """One batch through the reference-semantics funnel
     (`brutus_tpu.fitting._screened_step_xla`): K2, K3, the convergence
     loops on the shortlists, then `lnpost_grid` on them."""
-    res = loglike_grid_screened_xla(
-        flux, err, mask, tables.table, tables.maskrow, tables.n_real,
-        tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
-        tile=tile, screen_k=fit_cfg.screen_k,
-        screen_block=fit_cfg.screen_block, last=tables.last,
-        model_group=model_group)
+    with profiling.span("bf.likelihood"):
+        res = loglike_grid_screened_xla(
+            flux, err, mask, tables.table, tables.maskrow, tables.n_real,
+            tables.aux_names, parallax=plx, parallax_err=plx_err,
+            cfg=fit_cfg, tile=tile, screen_k=fit_cfg.screen_k,
+            screen_block=fit_cfg.screen_block, last=tables.last,
+            model_group=model_group)
     gidx, aux = res.pop("global_idx"), res.pop("aux")
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(gidx)
     M = res["lnlike"].shape[1]
     noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        res["lnlike"].device, grid=True)
-    return lnpost_grid(res, aux["lnprior"], coord, noise, parallax=plx,
-                       parallax_err=plx_err, feh=aux.get("feh"),
-                       loga=aux.get("loga"), dust_profile=dust_profile,
-                       global_idx=gidx, cfg=post_cfg, gal_cfg=gal_cfg,
-                       dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
-                       lngalprior=lngalprior, lndustprior=lndustprior)
+    with profiling.span("bf.posterior"):
+        return lnpost_grid(res, aux["lnprior"], coord, noise, parallax=plx,
+                           parallax_err=plx_err, feh=aux.get("feh"),
+                           loga=aux.get("loga"), dust_profile=dust_profile,
+                           global_idx=gidx, cfg=post_cfg, gal_cfg=gal_cfg,
+                           dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
+                           lngalprior=lngalprior, lndustprior=lndustprior)
 
 
 def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
@@ -225,9 +236,10 @@ def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
     BruteForce._build_step`, engine "xla"): `loglike_grid` over the
     whole grid in its dtype, then `lnpost_grid`; on a `model_group`,
     over this rank's slice of the grid, merged over the group."""
-    res = loglike_grid(flux, err, mask, tables.coeffs, parallax=plx,
-                       parallax_err=plx_err, cfg=fit_cfg,
-                       model_group=model_group)
+    with profiling.span("bf.likelihood"):
+        res = loglike_grid(flux, err, mask, tables.coeffs, parallax=plx,
+                           parallax_err=plx_err, cfg=fit_cfg,
+                           model_group=model_group)
     res.pop("n_iter")
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(None).to(
@@ -235,13 +247,14 @@ def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
     M = res["lnlike"].shape[1] * group_size(model_group)
     noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
                        tables.coeffs.device, grid=True)
-    return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
-                       parallax_err=plx_err, feh=tables.feh,
-                       loga=tables.loga, dust_profile=dust_profile,
-                       cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-                       apply_av_prior=apply_av_prior,
-                       lngalprior=lngalprior, lndustprior=lndustprior,
-                       model_group=model_group)
+    with profiling.span("bf.posterior"):
+        return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
+                           parallax_err=plx_err, feh=tables.feh,
+                           loga=tables.loga, dust_profile=dust_profile,
+                           cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
+                           apply_av_prior=apply_av_prior,
+                           lngalprior=lngalprior, lndustprior=lndustprior,
+                           model_group=model_group)
 
 
 class _ExternalPrior:
@@ -299,6 +312,11 @@ class _ExternalPrior:
             total = (term if total is None else total.double() + term).to(
                 torch.float32)
         return total
+
+
+def _nbytes(values):
+    """Bytes of the tensors among `values`."""
+    return sum(v.nbytes for v in values if isinstance(v, torch.Tensor))
 
 
 def _pack_outputs(out, skip):
@@ -375,8 +393,9 @@ class _Fetcher:
 
     @staticmethod
     def result(host, event):
-        if event is not None:
-            event.synchronize()
+        with profiling.span("bf.wait"):
+            if event is not None:
+                event.synchronize()
         return [None if h is None else np.asarray(h) for h in host]
 
 
@@ -424,10 +443,11 @@ class BruteForce:
         if phot_offsets is None:
             phot_offsets = np.ones(n_filt)
         if lnprior is None:
-            lnprior = default_grid_lnprior(self.models_labels,
-                                           self.labels_mask,
-                                           apply_agewt=apply_agewt,
-                                           apply_grad=apply_grad)
+            with profiling.span("bf.grid_prior"):
+                lnprior = default_grid_lnprior(self.models_labels,
+                                               self.labels_mask,
+                                               apply_agewt=apply_agewt,
+                                               apply_grad=apply_grad)
         if data_coords is None:
             data_coords = np.zeros((n_data, 2))
         # Remove bad photometry the user may not have masked
@@ -450,6 +470,7 @@ class BruteForce:
                 np.asarray(data_coords, dtype=float),
                 np.asarray(lnprior, dtype=float))
 
+    @profiling.traced_call("bf.fit")
     def fit(self, data, data_err, data_mask, data_labels=None,
             save_file=None, phot_offsets=None, parallax=None,
             parallax_err=None, Nmc_prior=50, avlim=(0.0, 20.0),
@@ -495,15 +516,16 @@ class BruteForce:
         if screen_select not in (None, "exact", "approx"):
             raise ValueError(f"screen_select={screen_select!r}: expected "
                              "'exact' or 'approx'")
-        (data, data_err, data_mask, parallax, parallax_err, data_coords,
-         lnprior) = self._setup(data, data_err, data_mask,
-                                phot_offsets=phot_offsets,
-                                parallax=parallax,
-                                parallax_err=parallax_err,
-                                lnprior=lnprior, apply_agewt=apply_agewt,
-                                apply_grad=apply_grad,
-                                data_coords=data_coords,
-                                mag_max=mag_max, merr_max=merr_max)
+        with profiling.span("bf.setup"):
+            (data, data_err, data_mask, parallax, parallax_err, data_coords,
+             lnprior) = self._setup(data, data_err, data_mask,
+                                    phot_offsets=phot_offsets,
+                                    parallax=parallax,
+                                    parallax_err=parallax_err,
+                                    lnprior=lnprior, apply_agewt=apply_agewt,
+                                    apply_grad=apply_grad,
+                                    data_coords=data_coords,
+                                    mag_max=mag_max, merr_max=merr_max)
         n_data = data.shape[0]
         fit_cfg = FitConfig(
             avlim=tuple(avlim),
@@ -554,11 +576,13 @@ class BruteForce:
         apply_av_prior = (dustmap is not None) and (av_gauss is None)
         dust_dist = dust_mean = dust_std = None
         if apply_av_prior:
-            dd, dm, ds = dustmap.query((data_coords[:, 0],
-                                        data_coords[:, 1]))
-            dd, dust_mean, dust_std = uniform_profile(
-                dd, np.atleast_2d(dm), np.atleast_2d(ds), n=NL_PAD)
-            dust_dist = torch.as_tensor(dd, dtype=f32, device=dev)
+            with profiling.span("bf.dust"):
+                dd, dm, ds = dustmap.query((data_coords[:, 0],
+                                            data_coords[:, 1]))
+                dd, dust_mean, dust_std = uniform_profile(
+                    dd, np.atleast_2d(dm), np.atleast_2d(ds), n=NL_PAD)
+                dust_dist = torch.as_tensor(dd, dtype=f32, device=dev)
+            profiling.count("h2d_bytes", dust_dist.nbytes)
 
         build, step = {
             ("fused", True): (from_numpy_grid, _funnel_step),
@@ -569,9 +593,12 @@ class BruteForce:
         kw = {} if build is reference_tables else dict(tile=tile)
         if model_ax > 1:
             kw.update(n_shards=model_ax, shard=shard)
-        tables = build(self.models, self.models_labels, self.labels_mask,
-                       device=dev, lnprior=lnprior,
-                       apply_dlabels=apply_dlabels, **kw)
+        with profiling.span("bf.tables"):
+            tables = build(self.models, self.models_labels, self.labels_mask,
+                           device=dev, lnprior=lnprior,
+                           apply_dlabels=apply_dlabels, **kw)
+        if profiling.recording():
+            profiling.count("h2d_bytes", _nbytes(vars(tables).values()))
         ext = None
         if lnprior_ext is not None:
             n_cols, first = self.NMODEL, 0
@@ -613,7 +640,7 @@ class BruteForce:
             """Upload and launch the batches of rows lo..hi (float32
             products at full precision); start the copy back of their
             packed outputs."""
-            with highest_precision():
+            with highest_precision(), profiling.span("bf.launch"):
                 return _launch(lo, hi)
 
         def _launch(lo, hi):
@@ -629,11 +656,14 @@ class BruteForce:
             # more than it overlapped (PERF.md, the streaming loop)
             up = lambda x, dt=f32: torch.as_tensor(x[take], dtype=dt,
                                                    device=dev)
-            g = dict(flux=up(data, data_dt), err=up(data_err, data_dt),
-                     mask=up(data_mask, torch.bool), plx=up(parallax),
-                     plxe=up(parallax_err), coord=up(data_coords))
-            if apply_av_prior:
-                g["dm"], g["ds"] = up(dust_mean), up(dust_std)
+            with profiling.span("bf.upload"):
+                g = dict(flux=up(data, data_dt), err=up(data_err, data_dt),
+                         mask=up(data_mask, torch.bool), plx=up(parallax),
+                         plxe=up(parallax_err), coord=up(data_coords))
+                if apply_av_prior:
+                    g["dm"], g["ds"] = up(dust_mean), up(dust_std)
+            if profiling.recording():
+                profiling.count("h2d_bytes", _nbytes(g.values()))
             packs = []
             for blo in range(r0, r1, per):
                 bhi = min(blo + per, r1)
@@ -649,7 +679,8 @@ class BruteForce:
                            fit_cfg, post_cfg, gal_cfg, dust_cfg,
                            apply_av_prior, tile, lngalprior, lndustprior,
                            ext_at=ext_at, model_group=model_group)
-                packs.append(_pack_outputs(out, skip))
+                with profiling.span("bf.pack"):
+                    packs.append(_pack_outputs(out, skip))
             layout = packs[0][1]
             mats = [None if packs[0][0][i] is None
                     else torch.cat([p[0][i] for p in packs])
@@ -657,12 +688,14 @@ class BruteForce:
             # every rank gets the whole batch, in row order
             mats = [None if m is None else
                     all_gather(m, data_group, dim=0)[:hi - lo] for m in mats]
-            return (lo, hi - lo, layout) + fetcher.start(mats)
+            with profiling.span("bf.copy"):
+                return (lo, hi - lo, layout) + fetcher.start(mats)
 
         def finish(item):
             lo, n, layout, host, event = item
             fpack, ipack = fetcher.result(host, event)
-            return lo, n, _unpack_outputs(fpack, ipack, layout)
+            with profiling.span("bf.unpack"):
+                return lo, n, _unpack_outputs(fpack, ipack, layout)
 
         def batches():
             """`(lo, n, out)` per group, one group in flight: group i+1
@@ -687,7 +720,8 @@ class BruteForce:
         try:
             for lo, n, out in batches():
                 if writer is not None:
-                    writer.write_batch(lo, out, n_valid=n)
+                    with profiling.span("bf.write"):
+                        writer.write_batch(lo, out, n_valid=n)
                 if collected is not None:
                     collected.append(out)
                 n_done += n

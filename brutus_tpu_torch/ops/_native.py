@@ -11,9 +11,11 @@ source is never served a stale build, and loaded with `ctypes`.
 Every launch goes through a `Kernel`: it passes tensor pointers and the
 current CUDA stream as `c_void_p`, raises if the C entry returns a CUDA
 error (a refused launch never runs and a later synchronise would not
-report it), and counts its launches.  Importing this module builds
-nothing: the wrappers in `funnel.py`, `fit.py` and `mc.py` call a
-`Kernel` (and so build and load the library) only for CUDA tensors.
+report it), and counts its launches; while a profiler records, it
+also notes each launch's time in the open `fit` call's record
+(`profiling.kernel_launch`).  Importing this module builds nothing: the
+wrappers in `funnel.py`, `fit.py` and `mc.py` call a `Kernel` (and so
+build and load the library) only for CUDA tensors.
 """
 
 import ctypes
@@ -25,6 +27,8 @@ import subprocess
 import threading
 
 import torch
+
+from .. import profiling
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -129,6 +133,7 @@ class Kernel:
         stream = torch.cuda.current_stream().cuda_stream
         conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]          # None passes a null pointer
+        profiling.kernel_launch(self.name)
         err = self._fn(*conv, stream)
         if err != 0:
             msg = library().bk_error_string(err).decode()

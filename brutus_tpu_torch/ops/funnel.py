@@ -31,6 +31,7 @@ from functools import lru_cache
 
 import torch
 
+from .. import profiling
 from ..config import FitConfig, LN2PI
 from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ._native import KERNELS, check
@@ -541,23 +542,29 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     while P % tile2:
         tile2 //= 2
 
-    flux_p, wt_flux, mags, wt_mag, mask, ndim, tot_var = \
-        prepare_star_data(flux, fluxerr, mask, cfg)
-    nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-    parallax = nan if parallax is None else parallax.to(dev, torch.float32)
-    parallax_err = (nan if parallax_err is None
-                    else parallax_err.to(dev, torch.float32))
-    plx, plxw = _screen_parallax(parallax, parallax_err)
-    star2, srow5 = _screen_star_mats(mags, wt_mag, plx, plxw)
-    bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
-    _, idx, coef = select_and_gather(table, bscore, nb, block, model_group)
+    with profiling.span("bf.screen"):
+        flux_p, wt_flux, mags, wt_mag, mask, ndim, tot_var = \
+            prepare_star_data(flux, fluxerr, mask, cfg)
+        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
+        parallax = (nan if parallax is None
+                    else parallax.to(dev, torch.float32))
+        parallax_err = (nan if parallax_err is None
+                        else parallax_err.to(dev, torch.float32))
+        plx, plxw = _screen_parallax(parallax, parallax_err)
+        star2, srow5 = _screen_star_mats(mags, wt_mag, plx, plxw)
+        bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
+    with profiling.span("bf.gather"):
+        _, idx, coef = select_and_gather(table, bscore, nb, block,
+                                         model_group)
 
     n_aux = len(aux_names)
     n_rows = 12 + n_aux
-    star4 = torch.stack([flux_p, wt_flux, mags, wt_mag], dim=1).contiguous()
-    pack = fit_pack(star4, coef, idx.contiguous(),
-                    post_consts(mask, ndim, tot_var), n_aux, n_rows,
-                    n_real if n_real < Mp else -1, tile2, cfg)
+    with profiling.span("bf.fit_models"):
+        star4 = torch.stack([flux_p, wt_flux, mags, wt_mag],
+                            dim=1).contiguous()
+        pack = fit_pack(star4, coef, idx.contiguous(),
+                        post_consts(mask, ndim, tot_var), n_aux, n_rows,
+                        n_real if n_real < Mp else -1, tile2, cfg)
     return dict(pack=pack, names=pack_row_names(aux_names), ndim=ndim,
                 global_idx=idx)
 

@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from .. import profiling
 from ..config import PosteriorConfig, GalPriorConfig, DustPriorConfig
 from ..coords import _M
 from ..priors import (gal_lnprior, dust_lnprior, parallax_lnprior,
@@ -500,47 +501,54 @@ def lnpost_batch(pack, names, ndim, coord, noise: Noise, parallax=None,
     567-575`).
     """
     B = pack.shape[0]
-    parallax, parallax_err, coord = _star_args(B, pack.device, parallax,
-                                               parallax_err, coord)
+    with profiling.span("bf.select"):
+        parallax, parallax_err, coord = _star_args(
+            B, pack.device, parallax, parallax_err, coord)
+        sel = _select_stage(pack, names, ndim, coord, parallax,
+                            parallax_err, dust_profile, cfg, gal_cfg,
+                            dust_cfg, apply_av_prior, global_idx)
     use_dust = dust_profile is not None and apply_av_prior
-    sel = _select_stage(pack, names, ndim, coord, parallax, parallax_err,
-                        dust_profile, cfg, gal_cfg, dust_cfg,
-                        apply_av_prior, global_idx)
-    scal, dust = _star_scalars(coord, parallax, parallax_err, dust_profile,
-                               use_dust)
     nmc = cfg.n_mc_prior
     valid = sel["valid"]
-    lnmc, dist_k, red_k, dred_k, agg = mc_integrate(
-        sel["table"], _pack_row_map(names), valid.to(torch.float32), scal,
-        dust, None if noise.z is None else noise.z.contiguous(), nmc, tile,
-        cfg, gal_cfg, dust_cfg, use_feh=sel["has_feh"],
-        use_loga=sel["has_loga"], use_dust=use_dust, seeds=noise.seeds)
+    with profiling.span("bf.mc"):
+        scal, dust = _star_scalars(coord, parallax, parallax_err,
+                                   dust_profile, use_dust)
+        lnmc, dist_k, red_k, dred_k, agg = mc_integrate(
+            sel["table"], _pack_row_map(names), valid.to(torch.float32),
+            scal, dust, None if noise.z is None else noise.z.contiguous(),
+            nmc, tile, cfg, gal_cfg, dust_cfg, use_feh=sel["has_feh"],
+            use_loga=sel["has_loga"], use_dust=use_dust, seeds=noise.seeds)
+    if profiling.recording():
+        # summed on the card, read when the call ends
+        profiling.count("k4_columns", valid.numel())
+        profiling.count("k4_valid", valid.sum())
 
-    lnp_sel = sel["lnp_sel"] + agg[:, 0] - torch.log(
-        torch.clamp(agg[:, 1], min=1.0))
-    lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (agg[:, 1] > 0),
-                          lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
-    log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"], noise.u,
-                                         cfg.n_draws)
+    with profiling.span("bf.draws"):
+        lnp_sel = sel["lnp_sel"] + agg[:, 0] - torch.log(
+            torch.clamp(agg[:, 1], min=1.0))
+        lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (agg[:, 1] > 0),
+                              lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
+        log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"], noise.u,
+                                             cfg.n_draws)
 
-    take = lambda x: torch.gather(x, 1, idxs)
-    # (B, nmc, K) draw fields at the drawn models -> (B, nd, nmc)
-    at = lambda x: torch.gather(x[:, :nmc], 2, idxs[:, None, :].expand(
-        B, nmc, idxs.shape[1])).transpose(1, 2)
-    lr = at(lnmc)
-    imc = torch.argmax(lr + noise.gumbel, dim=2, keepdim=True)
-    pick = lambda x: torch.gather(at(x), 2, imc)[..., 0]
-    covd = torch.gather(agg[:, 2:8], 2, idxs[:, None, :].expand(
-        B, 6, idxs.shape[1]))
-    cov_sar = sym3_from_parts(tuple(covd[:, j] for j in range(6)))
-    return dict(
-        model_idx=take(sel["sel_gidx"]),
-        scale=take(sel["scale_k"]), av=take(sel["av_k"]),
-        rv=take(sel["rv_k"]), cov_sar=cov_sar, lnprob=take(lnp_sel),
-        dist=pick(dist_k), red=pick(red_k), dred=pick(dred_k),
-        logwt=torch.gather(lr, 2, imc)[..., 0],
-        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"],
-        sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel, valid_sel=valid)
+        take = lambda x: torch.gather(x, 1, idxs)
+        # (B, nmc, K) draw fields at the drawn models -> (B, nd, nmc)
+        at = lambda x: torch.gather(x[:, :nmc], 2, idxs[:, None, :].expand(
+            B, nmc, idxs.shape[1])).transpose(1, 2)
+        lr = at(lnmc)
+        imc = torch.argmax(lr + noise.gumbel, dim=2, keepdim=True)
+        pick = lambda x: torch.gather(at(x), 2, imc)[..., 0]
+        covd = torch.gather(agg[:, 2:8], 2, idxs[:, None, :].expand(
+            B, 6, idxs.shape[1]))
+        cov_sar = sym3_from_parts(tuple(covd[:, j] for j in range(6)))
+        return dict(
+            model_idx=take(sel["sel_gidx"]),
+            scale=take(sel["scale_k"]), av=take(sel["av_k"]),
+            rv=take(sel["rv_k"]), cov_sar=cov_sar, lnprob=take(lnp_sel),
+            dist=pick(dist_k), red=pick(red_k), dred=pick(dred_k),
+            logwt=torch.gather(lr, 2, imc)[..., 0],
+            log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"],
+            sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel, valid_sel=valid)
 
 
 def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,

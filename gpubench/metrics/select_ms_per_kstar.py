@@ -1,0 +1,14 @@
+"""Posterior and select (`posterior._select_stage`): device time of the
+kernels launched inside the program's `bf.select` spans, per 1000
+stars of the traced calls."""
+
+from gpubench.spans import launched_in, program_spans
+from gpubench.tracing import device_seconds
+
+
+def read(ctx):
+    spans = program_spans(ctx) if ctx.kernels else None
+    if not spans:
+        return None
+    return ctx.per_kstar(device_seconds(launched_in(ctx, spans,
+                                                    "bf.select")))
