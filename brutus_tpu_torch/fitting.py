@@ -408,6 +408,15 @@ class BruteForce:
     engine runs in it, the kernels' engines in float32.  `device` is
     where the grid and every stage live: CUDA unless the caller passes
     another (the CPU runs the kernels' plain versions).
+
+    The set-up that does not depend on the stars is kept between `fit`
+    calls: the default grid prior for each `(apply_agewt, apply_grad)`,
+    and the device tables of the newest call, reused while the engine's
+    table builder, `tile`, `apply_dlabels`, the mesh shard, the device
+    and the grid prior (the default or the caller's `lnprior`, by
+    content) stay the same; any other call rebuilds them.  Both are
+    read from the grid as it was when they were built, so a grid
+    changed in place needs a new `BruteForce`.
     """
 
     def __init__(self, models, models_labels, labels_mask=None,
@@ -420,6 +429,10 @@ class BruteForce:
         self.labels_mask = labels_mask
         self.NLABELS = len(models_labels.dtype.names)
         self.device = resolve_device(device)
+        # call-invariant set-up: the default grid priors by their flags,
+        # and `(key, grid prior, tables)` of the newest table build
+        self._priors = {}
+        self._tables = None
 
     def _setup(self, data, data_err, data_mask, phot_offsets=None,
                parallax=None, parallax_err=None, lnprior=None,
@@ -444,10 +457,15 @@ class BruteForce:
             phot_offsets = np.ones(n_filt)
         if lnprior is None:
             with profiling.span("bf.grid_prior"):
-                lnprior = default_grid_lnprior(self.models_labels,
-                                               self.labels_mask,
-                                               apply_agewt=apply_agewt,
-                                               apply_grad=apply_grad)
+                flags = (bool(apply_agewt), bool(apply_grad))
+                lnprior = self._priors.get(flags)
+                if lnprior is None:
+                    lnprior = np.asarray(default_grid_lnprior(
+                        self.models_labels, self.labels_mask,
+                        apply_agewt=apply_agewt, apply_grad=apply_grad),
+                        dtype=float)
+                    lnprior.flags.writeable = False     # shared by calls
+                    self._priors[flags] = lnprior
         if data_coords is None:
             data_coords = np.zeros((n_data, 2))
         # Remove bad photometry the user may not have masked
@@ -469,6 +487,17 @@ class BruteForce:
                 np.asarray(parallax_err, dtype=float),
                 np.asarray(data_coords, dtype=float),
                 np.asarray(lnprior, dtype=float))
+
+    def _kept_tables(self, key, lnprior):
+        """The kept tables, where the newest build had the inputs `key`
+        and a grid prior equal to `lnprior`; else None."""
+        if self._tables is None or self._tables[0] != key:
+            return None
+        _, prior, tables = self._tables
+        if prior is lnprior or np.array_equal(prior, lnprior,
+                                              equal_nan=True):
+            return tables
+        return None
 
     @profiling.traced_call("bf.fit")
     def fit(self, data, data_err, data_mask, data_labels=None,
@@ -594,10 +623,21 @@ class BruteForce:
         if model_ax > 1:
             kw.update(n_shards=model_ax, shard=shard)
         with profiling.span("bf.tables"):
-            tables = build(self.models, self.models_labels, self.labels_mask,
-                           device=dev, lnprior=lnprior,
-                           apply_dlabels=apply_dlabels, **kw)
-        if profiling.recording():
+            key = (build, tuple(sorted(kw.items())), bool(apply_dlabels),
+                   dev)
+            tables = self._kept_tables(key, lnprior)
+            reused = tables is not None
+            if not reused:
+                self._tables = None     # frees the old entry's memory first
+                tables = build(self.models, self.models_labels,
+                               self.labels_mask, device=dev, lnprior=lnprior,
+                               apply_dlabels=apply_dlabels, **kw)
+                # the caller may change its own prior in place: keep a copy
+                own = any(lnprior is p for p in self._priors.values())
+                self._tables = (key, lnprior if own else lnprior.copy(),
+                                tables)
+        profiling.count("setup_reused", int(reused))
+        if not reused and profiling.recording():
             profiling.count("h2d_bytes", _nbytes(vars(tables).values()))
         ext = None
         if lnprior_ext is not None:

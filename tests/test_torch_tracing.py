@@ -76,6 +76,13 @@ def _fit(p, n=N_STAR, **kw):
     return p["bf"].fit(p["flux"][:n], p["err"][:n], p["mask"][:n], **k)
 
 
+def _fresh(p):
+    """The problem on a new `BruteForce`, which keeps no set-up yet."""
+    bf = p["bf"]
+    return dict(p, bf=BruteForce(bf.models, bf.models_labels,
+                                 device="cpu"))
+
+
 def _traced(p, tmp_path, n=N_STAR, **kw):
     """A fit under a CPU profiler: its results, its `bf.*` spans
     `(name, t0, t1, tid)` from the exported trace, and its record."""
@@ -160,21 +167,37 @@ def test_funnel_spans_nest_inside_their_group(problem, tmp_path, scan):
 
 
 def test_counters_of_a_call(problem, tmp_path):
-    """The call's record: its three counters, K selected columns per
-    star, a valid share in (0, 1], and at least the table's bytes
-    uploaded."""
-    _, _, rec = _traced(problem, tmp_path)
+    """The first call's record on a new `BruteForce`: its four counters,
+    K selected columns per star, a valid share in (0, 1], the tables
+    built (not reused) and at least the table's bytes uploaded."""
+    _, _, rec = _traced(_fresh(problem), tmp_path)
     c = rec["counters"]
     assert rec["t0"] < rec["t1"]
     block = _slab_block(KW["screen_block"], KW["tile"])
     P = KW["screen_k"] // block * block
     K = selection_size(PosteriorConfig(n_sel_max=KW["n_sel_max"]), P)
-    assert sorted(c) == ["h2d_bytes", "k4_columns", "k4_valid"]
+    assert sorted(c) == ["h2d_bytes", "k4_columns", "k4_valid",
+                         "setup_reused"]
     assert c["k4_columns"] == K * N_STAR
     assert isinstance(c["k4_valid"], int)
     assert 0 < c["k4_valid"] <= c["k4_columns"]
+    assert c["setup_reused"] == 0
     table_bytes = 4 * (3 * F + 3) * N_MODEL
     assert c["h2d_bytes"] >= table_bytes
+
+
+def test_a_repeated_call_reuses_the_set_up(problem, tmp_path):
+    """A second call with the same settings reuses the tables: it
+    records `setup_reused` 1, uploads fewer bytes than the table, and
+    still opens `bf.grid_prior` and `bf.tables`."""
+    p = _fresh(problem)
+    _fit(p, 8)
+    _, spans, rec = _traced(p, tmp_path)
+    c = rec["counters"]
+    assert c["setup_reused"] == 1
+    assert 0 < c["h2d_bytes"] < 4 * (3 * F + 3) * N_MODEL
+    names = [s[0] for s in spans]
+    assert names.count("bf.grid_prior") == names.count("bf.tables") == 1
 
 
 def test_results_do_not_depend_on_the_profiler(problem, tmp_path):
@@ -191,11 +214,12 @@ def test_results_do_not_depend_on_the_profiler(problem, tmp_path):
 def test_other_engines_spans(problem, tmp_path, engine):
     """The dense and reference-semantics engines: the entry and group
     spans, and one `bf.likelihood` and one `bf.posterior` per batch
-    (8 stars in one batch), none of the funnel's stage spans, and at
-    least the grid's coefficients counted as uploaded."""
+    (8 stars in one batch), none of the funnel's stage spans, and, on
+    the first call of a new `BruteForce`, at least the grid's
+    coefficients counted as uploaded."""
     kw = dict(dense=dict(screen_k=0), xla_funnel=dict(engine="xla"),
               xla_dense=dict(engine="xla", screen_k=0))[engine]
-    _, spans, rec = _traced(problem, tmp_path, 8, **kw)
+    _, spans, rec = _traced(_fresh(problem), tmp_path, 8, **kw)
     names = [s[0] for s in spans]
     _parents(spans)
     assert names.count("bf.likelihood") == names.count("bf.posterior") == 1
