@@ -188,8 +188,9 @@ def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
     if ext_at is not None:
         res["lnlike"] = res["lnlike"] + ext_at(None)
     M = res["lnlike"].shape[1]
-    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
-                       tables.coeffs.device, grid=True)
+    with profiling.span("bf.noise"):
+        noise = draw_noise(seed, rows, selection_size(post_cfg, M),
+                           post_cfg, tables.coeffs.device, grid=True)
     with profiling.span("bf.posterior"):
         return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
                            parallax_err=plx_err, feh=tables.feh,

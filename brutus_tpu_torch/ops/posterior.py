@@ -589,68 +589,73 @@ def lnpost_grid(results, lnprior_grid, coord, noise: Noise, parallax=None,
     `global_idx` when given).
     """
     B = results["lnlike"].shape[0]
-    parallax, parallax_err, coord = _star_args(
-        B, results["lnlike"].device, parallax, parallax_err, coord)
-    sel = _select_grid(results, lnprior_grid, feh, loga, global_idx, coord,
-                       parallax, parallax_err, dust_profile, cfg, gal_cfg,
-                       dust_cfg, apply_av_prior, lngalprior, lndustprior,
-                       model_group)
+    with profiling.span("bf.select"):
+        parallax, parallax_err, coord = _star_args(
+            B, results["lnlike"].device, parallax, parallax_err, coord)
+        sel = _select_grid(results, lnprior_grid, feh, loga, global_idx,
+                           coord, parallax, parallax_err, dust_profile, cfg,
+                           gal_cfg, dust_cfg, apply_av_prior, lngalprior,
+                           lndustprior, model_group)
     lnp_sel, valid = sel["lnp_sel"], sel["valid"]
     scale_k, av_k, rv_k = sel["scale_k"], sel["av_k"], sel["rv_k"]
 
-    # covariances: stable inverse + PSD repair, on parts (:520-524)
-    cov_p = psd_repair_parts(sel["icov_k"], scale_k, valid, cfg.psd_width,
-                             cfg.psd_max_passes, mvn_eps=cfg.mvn_eps)
-    cov_k = sym3_from_parts(cov_p)
+    with profiling.span("bf.mc"):
+        # covariances: stable inverse + PSD repair, on parts (:520-524)
+        cov_p = psd_repair_parts(sel["icov_k"], scale_k, valid,
+                                 cfg.psd_width, cfg.psd_max_passes,
+                                 mvn_eps=cfg.mvn_eps)
+        cov_k = sym3_from_parts(cov_p)
 
-    # MC integration over the (s, Av, Rv) Gaussians (:526-565)
-    l00, l10, l11, l20, l21, l22 = (x[..., None]
-                                    for x in cholesky3_parts(cov_p))
-    z0, z1, z2 = noise.z[:, :, 0], noise.z[:, :, 1], noise.z[:, :, 2]
-    s_mc = scale_k[..., None] + l00 * z0                     # (B, K, Nmc)
-    a_mc = av_k[..., None] + l10 * z0 + l11 * z1
-    r_mc = rv_k[..., None] + l20 * z0 + l21 * z1 + l22 * z2
-    par_mc = torch.sqrt(torch.clamp(s_mc, min=1e-30))
-    dist_mc = 1.0 / par_mc
-    lab = lambda x: None if x is None else x[..., None]
-    lnp_mc = _gal_prior(dist_mc, coord, lab(sel["feh_k"]),
-                        lab(sel["loga_k"]), gal_cfg, lngalprior)
-    if apply_av_prior and dust_profile is not None:
-        lnp_mc = lnp_mc + _dust_prior(dist_mc, a_mc, dust_profile, dust_cfg,
-                                      lndustprior)
-    lnp_mc = lnp_mc + parallax_lnprior(par_mc, parallax[:, None, None],
-                                       parallax_err[:, None, None])
-    inb = ((s_mc >= 1e-20) & (a_mc >= cfg.avlim[0])
-           & (a_mc <= cfg.avlim[1]) & (r_mc >= cfg.rvlim[0])
-           & (r_mc <= cfg.rvlim[1]))
-    lnp_mc = torch.where(inb & torch.isfinite(lnp_mc), lnp_mc,
-                         torch.full_like(lnp_mc, NEG_BIG))
-    n_eff = inb.sum(2)
-    lnp_sel = lnp_sel + torch.logsumexp(lnp_mc, dim=2) - torch.log(
-        torch.clamp(n_eff, min=1).to(lnp_sel.dtype))
-    lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (n_eff > 0),
-                          lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
-    log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"], noise.u,
-                                         cfg.n_draws)
+        # MC integration over the (s, Av, Rv) Gaussians (:526-565)
+        l00, l10, l11, l20, l21, l22 = (x[..., None]
+                                        for x in cholesky3_parts(cov_p))
+        z0, z1, z2 = noise.z[:, :, 0], noise.z[:, :, 1], noise.z[:, :, 2]
+        s_mc = scale_k[..., None] + l00 * z0                 # (B, K, Nmc)
+        a_mc = av_k[..., None] + l10 * z0 + l11 * z1
+        r_mc = rv_k[..., None] + l20 * z0 + l21 * z1 + l22 * z2
+        par_mc = torch.sqrt(torch.clamp(s_mc, min=1e-30))
+        dist_mc = 1.0 / par_mc
+        lab = lambda x: None if x is None else x[..., None]
+        lnp_mc = _gal_prior(dist_mc, coord, lab(sel["feh_k"]),
+                            lab(sel["loga_k"]), gal_cfg, lngalprior)
+        if apply_av_prior and dust_profile is not None:
+            lnp_mc = lnp_mc + _dust_prior(dist_mc, a_mc, dust_profile,
+                                          dust_cfg, lndustprior)
+        lnp_mc = lnp_mc + parallax_lnprior(par_mc, parallax[:, None, None],
+                                           parallax_err[:, None, None])
+        inb = ((s_mc >= 1e-20) & (a_mc >= cfg.avlim[0])
+               & (a_mc <= cfg.avlim[1]) & (r_mc >= cfg.rvlim[0])
+               & (r_mc <= cfg.rvlim[1]))
+        lnp_mc = torch.where(inb & torch.isfinite(lnp_mc), lnp_mc,
+                             torch.full_like(lnp_mc, NEG_BIG))
+        n_eff = inb.sum(2)
+        lnp_sel = lnp_sel + torch.logsumexp(lnp_mc, dim=2) - torch.log(
+            torch.clamp(n_eff, min=1).to(lnp_sel.dtype))
+        lnp_sel = torch.where(valid & _is_valid(lnp_sel) & (n_eff > 0),
+                              lnp_sel, torch.full_like(lnp_sel, NEG_BIG))
 
-    # weighted categorical resampling (:566-577)
-    nd = idxs.shape[1]
-    take = lambda x: torch.gather(x, 1, idxs)
-    at = lambda x: torch.gather(x, 1, idxs[..., None].expand(
-        B, nd, x.shape[2]))                                  # (B, nd, Nmc)
-    lr = at(lnp_mc)
-    imc = torch.argmax(lr + noise.gumbel, dim=2, keepdim=True)
-    pick = lambda x: torch.gather(at(x), 2, imc)[..., 0]
-    cov_sar = torch.gather(cov_k, 1, idxs[..., None, None].expand(
-        B, nd, 3, 3))
-    return dict(
-        model_idx=take(sel["sel_gidx"]), scale=take(scale_k),
-        av=take(av_k), rv=take(rv_k), cov_sar=cov_sar,
-        lnprob=take(lnp_sel), dist=pick(dist_mc), red=pick(a_mc),
-        dred=pick(r_mc), logwt=torch.gather(lr, 2, imc)[..., 0],
-        log_evidence=log_evid, chi2min=sel["chi2min"], ndim=sel["ndim"],
-        sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel, valid_sel=valid)
+    with profiling.span("bf.draws"):
+        log_evid, idxs = _evidence_and_draws(lnp_sel, sel["chi2_k"],
+                                             noise.u, cfg.n_draws)
 
+        # weighted categorical resampling (:566-577)
+        nd = idxs.shape[1]
+        take = lambda x: torch.gather(x, 1, idxs)
+        at = lambda x: torch.gather(x, 1, idxs[..., None].expand(
+            B, nd, x.shape[2]))                              # (B, nd, Nmc)
+        lr = at(lnp_mc)
+        imc = torch.argmax(lr + noise.gumbel, dim=2, keepdim=True)
+        pick = lambda x: torch.gather(at(x), 2, imc)[..., 0]
+        cov_sar = torch.gather(cov_k, 1, idxs[..., None, None].expand(
+            B, nd, 3, 3))
+        return dict(
+            model_idx=take(sel["sel_gidx"]), scale=take(scale_k),
+            av=take(av_k), rv=take(rv_k), cov_sar=cov_sar,
+            lnprob=take(lnp_sel), dist=pick(dist_mc), red=pick(a_mc),
+            dred=pick(r_mc), logwt=torch.gather(lr, 2, imc)[..., 0],
+            log_evidence=log_evid, chi2min=sel["chi2min"],
+            ndim=sel["ndim"], sel_idx=sel["sel_gidx"], lnp_sel=lnp_sel,
+            valid_sel=valid)
 
 __all__ = ["lnpost_batch", "lnpost_grid", "draw_noise", "selection_size",
            "Noise"]

@@ -214,17 +214,54 @@ def test_results_do_not_depend_on_the_profiler(problem, tmp_path):
 def test_other_engines_spans(problem, tmp_path, engine):
     """The dense and reference-semantics engines: the entry and group
     spans, and one `bf.likelihood` and one `bf.posterior` per batch
-    (8 stars in one batch), none of the funnel's stage spans, and, on
-    the first call of a new `BruteForce`, at least the grid's
-    coefficients counted as uploaded."""
+    (8 stars in one batch) with `lnpost_grid`'s `bf.select`, `bf.mc`
+    and `bf.draws` inside it; `bf.noise` in the dense engine alone;
+    none of the funnel's likelihood stages; and, on the first call of a
+    new `BruteForce`, at least the grid's coefficients counted as
+    uploaded."""
     kw = dict(dense=dict(screen_k=0), xla_funnel=dict(engine="xla"),
               xla_dense=dict(engine="xla", screen_k=0))[engine]
     _, spans, rec = _traced(_fresh(problem), tmp_path, 8, **kw)
     names = [s[0] for s in spans]
-    _parents(spans)
+    parent = dict(zip(names, _parents(spans)))
     assert names.count("bf.likelihood") == names.count("bf.posterior") == 1
     assert {"bf.fit", "bf.setup", "bf.tables", "bf.launch", "bf.upload",
             "bf.pack", "bf.copy", "bf.wait", "bf.unpack"} <= set(names)
-    assert not set(names) & {"bf.screen", "bf.gather", "bf.fit_models",
-                             "bf.noise", "bf.select", "bf.mc", "bf.draws"}
+    for name in ("bf.select", "bf.mc", "bf.draws"):
+        assert names.count(name) == 1 and parent[name] == "bf.posterior"
+    assert names.count("bf.noise") == (engine == "dense")
+    assert not set(names) & {"bf.screen", "bf.gather", "bf.fit_models"}
     assert rec["counters"]["h2d_bytes"] >= 4 * 3 * F * N_MODEL
+
+
+def test_dense_stage_spans_in_order(problem, tmp_path):
+    """The dense engine, 5 batches of 8: each batch's `bf.launch` holds
+    `bf.likelihood`, `bf.noise` and `bf.posterior` in that order, and
+    `bf.posterior` holds `bf.select`, `bf.mc` and `bf.draws` in that
+    order."""
+    _, spans, _ = _traced(problem, tmp_path, screen_k=0)
+    parent = _parents(spans)
+    launches = [s for s in spans if s[0] == "bf.launch"]
+    assert len(launches) == 5
+    for g in launches:
+        inside = [(s[0], up) for s, up in zip(spans, parent)
+                  if g[1] <= s[1] and s[2] <= g[2] and s is not g]
+        stages = [n for n, _ in inside if n in (
+            "bf.likelihood", "bf.noise", "bf.select", "bf.mc", "bf.draws")]
+        assert stages == ["bf.likelihood", "bf.noise", "bf.select",
+                          "bf.mc", "bf.draws"]
+        ups = dict(inside)
+        assert ups["bf.likelihood"] == ups["bf.noise"] == "bf.launch"
+        assert ups["bf.posterior"] == "bf.launch"
+        assert ups["bf.select"] == ups["bf.mc"] == ups["bf.draws"] == \
+            "bf.posterior"
+
+
+def test_dense_results_do_not_depend_on_the_profiler(problem, tmp_path):
+    """The dense engine's results, bit for bit, with and without a
+    profiler recording (the same seed)."""
+    off = _fit(problem, screen_k=0)
+    on, _, _ = _traced(problem, tmp_path, screen_k=0)
+    assert sorted(off) == sorted(on)
+    for k in off:
+        np.testing.assert_array_equal(off[k], on[k], err_msg=k)
