@@ -14,8 +14,12 @@ error (a refused launch never runs and a later synchronise would not
 report it), and counts its launches; while a profiler records, it
 also notes each launch's time in the open `fit` call's record
 (`profiling.kernel_launch`).  Importing this module builds nothing: the
-wrappers in `funnel.py`, `fit.py` and `mc.py` call a `Kernel` (and so
-build and load the library) only for CUDA tensors.
+wrappers in `funnel.py`, `fit.py`, `mc.py` and `rng.py` call a `Kernel`
+(and so build and load the library) only for CUDA tensors.  Every
+kernel's `__global__` function has one of `screen_kernel`,
+`gather_kernel`, `fit_kernel` or `mc_kernel` in its name: the
+benchmark's traced runs pair the launches noted here with the trace's
+kernels by those names (`gpubench/tracing.py`).
 """
 
 import ctypes
@@ -106,6 +110,7 @@ def library():
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 
 
 class Kernel:
@@ -174,6 +179,15 @@ KERNELS = {
         [P] * 14 + [I] * 8,
         "brutus_tpu_torch/csrc/mc.cu",
         "brutus_tpu/ops/pallas_mc.py:101"),
+    # The posterior's draws (`rng.draws`): none of the TPU's kernels, as
+    # the JAX package draws with `jax.random` in XLA; bound by its stores
+    # (~51 KB a funnel star, ~1.28 MB a dense star) and, without
+    # normals, by its Philox rounds.
+    "draws": Kernel(
+        "draws", "bk_draws",
+        [P] * 5 + [U] * 2 + [I] * 6,
+        "brutus_tpu_torch/csrc/draws.cu",
+        "none (jax.random in XLA, brutus_tpu/fitting.py:994, 1017)"),
 }
 
 

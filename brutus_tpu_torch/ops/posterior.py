@@ -64,12 +64,13 @@ def draw_noise(seed, rows, K, cfg: PosteriorConfig, device, grid=False):
     star (`rng.py`, counter layout there): for `lnpost_grid` when
     `grid`, else for `lnpost_batch`, whose MC kernel makes its normals
     from the star keys when `cfg.kernel_rng` and is fed the same
-    normals otherwise.  A star's draws depend on `(seed, row)` alone."""
-    keys = rng.star_keys(seed, torch.as_tensor(rows, device=device))
+    normals otherwise.  A star's draws depend on `(seed, row)` alone; on
+    a card they come from one kernel launch (`rng.draws`)."""
     nmc = cfg.n_mc_prior
     kind = "grid" if grid else (None if cfg.kernel_rng else "mc")
-    z, u, gumbel = rng.posterior_draws(keys, K, nmc, cfg.n_draws, z=kind,
-                                       nmc_pad=nmc_pad_of(nmc))
+    keys, z, u, gumbel = rng.draws(seed, torch.as_tensor(rows, device=device),
+                                   K, nmc, cfg.n_draws, z=kind,
+                                   nmc_pad=nmc_pad_of(nmc))
     return Noise(z, u, gumbel, None if kind else keys)
 
 

@@ -7,7 +7,9 @@ The JAX package keys each star by `fold_in(PRNGKey(seed), row)`
 `(seed, row)` alone, whatever the batch it sits in.  The port keeps
 that property with Philox4x32-10 (the generator K4's random-number
 mode runs in registers, `philox4x32_10` in `csrc/common.cuh`), here in
-plain PyTorch on int64 tensors masked to 32 bits.
+plain PyTorch on int64 tensors masked to 32 bits.  On the card, `draws`
+makes a batch's keys and draws in one launch of `csrc/draws.cu`, whose
+bits are those of `star_keys` and `posterior_draws`, its plain version.
 
 Counter layout.  A Philox call maps a 128-bit counter `(c0, c1, c2, c3)`
 and a 64-bit key to four 32-bit words.  Word `c3` names the stream, so
@@ -33,6 +35,8 @@ package's distributions, not its (threefry) bits.
 import math
 
 import torch
+
+from ._native import KERNELS
 
 MASK32 = 0xFFFFFFFF
 # PyTorch's ATen/core/PhiloxRNGEngine.h:233-236
@@ -189,5 +193,31 @@ def posterior_draws(keys, K, n_mc, n_draws, z=None, nmc_pad=None):
     return z, u, gumbel
 
 
+_Z_MODES = {None: 0, "mc": 1, "grid": 2}
+
+
+def draws(seed, rows, K, n_mc, n_draws, z=None, nmc_pad=None):
+    """`(keys, z, u, gumbel)` of the stars at global `rows` (B,) of a fit
+    seeded with `seed`: `star_keys` then `posterior_draws`, in one
+    kernel launch for CUDA `rows` (`csrc/draws.cu`, the same bits)."""
+    rows = torch.as_tensor(rows)
+    if rows.device.type != "cuda":
+        keys = star_keys(seed, rows)
+        return (keys, *posterior_draws(keys, K, n_mc, n_draws, z=z,
+                                       nmc_pad=nmc_pad))
+    dev = rows.device
+    rows = rows.to(torch.int64).contiguous()
+    seed = int(seed) & ((1 << 64) - 1)
+    B = rows.shape[0]
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    keys = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    u, gumbel = f32(B, n_draws), f32(B, n_draws, n_mc)
+    zt = (None if z is None else f32(B, 3, nmc_pad, K) if z == "mc"
+          else f32(B, K, 3, n_mc))
+    KERNELS["draws"](rows, keys, u, gumbel, zt, seed & MASK32, seed >> 32,
+                     B, n_draws, n_mc, K, nmc_pad or 0, _Z_MODES[z])
+    return keys, zt, u, gumbel
+
+
 __all__ = ["philox4x32_10", "bits_to_uniform", "star_keys", "words",
-           "normals", "posterior_draws"]
+           "normals", "posterior_draws", "draws"]

@@ -12,8 +12,8 @@ Phases, each printing one line with its elapsed seconds:
 1. the card's name and power limit (`nvidia-smi`);
 2. build of the CUDA kernels (one nvcc call, `build/kernels/`), and the
    registers and local memory per thread of the instances of the main
-   paths (K1 and K2 at F=8, K3, K4 in both modes with every prior on)
-   and of K1's run-time-F instance;
+   paths (K1 and K2 at F=8, K3, K4 in both modes with every prior on,
+   the draws kernel without normals) and of K1's run-time-F instance;
 3. each kernel, in each of its modes, against its plain PyTorch
    version on the card, at the widths of the main paths: K2 screen
    (750k models, 8 stars and the funnel's 128), K3 slab
@@ -24,7 +24,12 @@ Phases, each printing one line with its elapsed seconds:
    the tolerance and the times of kernel, plain version, library call
    (where one exists) and bound (K1's counts the polish only for the
    pairs its freeze lets move, `moving_pairs`; K4's the draws of valid
-   models, with its special functions on either pipe, `mc_bound`);
+   models, with its special functions on either pipe, `mc_bound`); and
+   the posterior's draws kernel (`rng.draws`) at each fused path's
+   batch (the funnel's 128 stars x 250 draws x 50 MC rows without
+   normals and with K4's fed normals, the dense engine's 16 stars with
+   (2048, 3, 50) grid normals), bit for bit, beside its bound and the
+   time of its stores alone (`draws_bound`);
 4. the main path: `BruteForce.fit` (funnel engine, K4 making its own
    normals, the default) on a 750,000-model, 8-band correlated grid,
    512 stars in 4 batches of 128, with parallax, Galactic and dust
@@ -403,7 +408,8 @@ def fit_dense_bound(B, Mp, F, moving):
 # operations and 7 special functions (2 logs, 2 square roots, 2
 # cosines, 1 sine).
 MC_DRAW_OPS, MC_DRAW_SFU, MC_MODEL_OPS, MC_MODEL_SFU = 150, 25, 150, 20
-MC_RNG_OPS, MC_RNG_SFU = 2 * 100 + 23, 7
+PHILOX_OPS, BOX_MULLER_OPS, BOX_MULLER_SFU = 2 * 100, 23, 7
+MC_RNG_OPS, MC_RNG_SFU = PHILOX_OPS + BOX_MULLER_OPS, BOX_MULLER_SFU
 # The special-function units: 16 results per SM per clock (NVIDIA's
 # CUDA C++ programming guide, throughput of arithmetic instructions,
 # compute capability 9.0) on the H100 SXM's 132 SMs.
@@ -441,6 +447,24 @@ def mc_bound(B, K, nmc, n_valid, active, rng, clock_mhz):
     else:
         nbytes += 4 * 3 * nmcp * active
     return bound(nbytes, ops, sfu, SFU_PER_SM_CLOCK * N_SM * clock_mhz * 1e6)
+
+
+def draws_bound(B, K, nmc, n_draws, z, clock_mhz):
+    """`(ms, by, store_ms)` of the draws kernel (`rng.draws`) for B stars:
+    the bound of `bound` and the stores' time alone.  Bytes: the rows
+    read, the keys, `u`, the Gumbel noise and the normals of layout `z`
+    (None, "mc" with its padding rows, "grid") written.  Operations: a
+    Philox call per star key, uniform, Gumbel value and normal item;
+    Box-Muller per normal item; two logs per Gumbel value."""
+    nmcp = -(-nmc // 8) * 8
+    n_z = {None: 0, "mc": 3 * nmcp * K, "grid": 3 * K * nmc}[z]
+    items = 0 if z is None else K * nmc
+    nbytes = B * (8 + 8 + 4 * (n_draws * (1 + nmc) + n_z))
+    ops = B * (PHILOX_OPS * (1 + n_draws * (1 + nmc) + items)
+               + BOX_MULLER_OPS * items)
+    sfu = B * (2 * n_draws * nmc + BOX_MULLER_SFU * items)
+    ms, by = bound(nbytes, ops, sfu, SFU_PER_SM_CLOCK * N_SM * clock_mhz * 1e6)
+    return ms, by, 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def nvidia_smi():
@@ -689,6 +713,56 @@ def phase_kernels(mc, labels, dev, results):
                                   bound_16_stars_ms=r["bound_ms"])
             else:
                 results[name] = dict(r, **at16[name])
+    results["draws"] = phase_draws(pcfg, clock, dev)
+
+
+# The draws kernel on each fused path: `(name, B, K, normals layout)`.
+DRAW_PATHS = (("funnel", 128, 2048, None), ("funnel_fed", 128, 2048, "mc"),
+              ("dense", 16, 2048, "grid"))
+
+
+def phase_draws(pcfg, clock, dev):
+    """The draws kernel against its plain version (`rng.star_keys` then
+    `rng.posterior_draws`) at each fused path's batch, bit for bit, with
+    rows past 2**32 and a seed with the high bit set; each path's device
+    time per launch, the plain version's time and the bound; returns the
+    `kernels` entry (the funnel's numbers, the others by path)."""
+    from brutus_tpu_torch.ops import mc as TMC, rng
+    nmc, nd = pcfg.n_mc_prior, pcfg.n_draws
+    nmcp = TMC.nmc_pad_of(nmc)
+    seed = 2 ** 63 + 2 ** 40 + 17
+    out = {}
+    for path, B, K, z in DRAW_PATHS:
+        t0 = time.time()
+        rows = torch.arange(2 ** 32 - 5, 2 ** 32 - 5 + B, device=dev)
+        run = lambda: rng.draws(seed, rows, K, nmc, nd, z=z, nmc_pad=nmcp)
+
+        def plain():
+            keys = rng.star_keys(seed, rows)
+            return (keys, *rng.posterior_draws(keys, K, nmc, nd, z=z,
+                                               nmc_pad=nmcp))
+        diff = sum(int((a != b).sum()) for a, b in zip(run(), plain())
+                   if a is not None)
+        ms = device_ms(run, "mc_kernel_draws", 20)
+        call_ms = cuda_ms(run, 20)
+        pms = cuda_ms(plain, 3)
+        bms, by, sms = draws_bound(B, K, nmc, nd, z, clock)
+        out[path] = dict(ms=ms, call_ms=call_ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, store_ms=sms, differing=diff)
+        log(f"phase 3 draws, {path} ({B} stars, {nd} draws x {nmc} MC "
+            f"rows, normals {z or 'none'}"
+            + (f" over {K} models" if z else "") + f"): outputs differing "
+            f"from the plain version {diff} (tol 0, bit for bit); kernel "
+            f"{ms:.4f} ms (device), {call_ms:.4f} ms per call, plain "
+            f"{pms:.3f} ms, bound {bms:.4f} ms ({by}; the stores alone "
+            f"{sms:.4f} ms)  [{time.time() - t0:.1f} s]")
+        if diff:
+            raise AssertionError(f"the draws kernel differs from its plain "
+                                 f"version on the {path} path")
+    f = out["funnel"]
+    return dict(max_abs_err=0.0, ms=f["ms"], plain_ms=f["plain_ms"],
+                bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+                library_ms=None, paths=out)
 
 
 def phase_mc(sel, names, scal, dust, pcfg, nb, clock, dev):
@@ -1585,9 +1659,11 @@ EVIDENCE_GAP, EVIDENCE_SIGMA = 5.0, 3.0
 MAP_DM_TOL, RESTARTS = 0.5, 4
 OFFSET_MIN, OFFSET_CONTROL, OFFSET_SIGMA = 0.03, 0.005, 3.0
 # The kernels of the funnel fit that feeds phase 13, by their names in a
-# `torch.profiler` trace.
+# `torch.profiler` trace, as patterns: K4's name is also the start of the
+# draws kernel's.
+K4_NAME, DRAWS_NAME = r"mc_kernel(?!_draws)", "mc_kernel_draws"
 TRACE_NAMES = dict(screen="screen_kernel", gather="gather_kernel",
-                   fit="fit_kernel", mc_rng="mc_kernel")
+                   fit="fit_kernel", mc_rng=K4_NAME, draws=DRAWS_NAME)
 
 
 def sightline(mc, n_star, seed=13):
@@ -1637,7 +1713,8 @@ def traced_fit(bf, s, dev, batch, screen_k, n_sel, logdir):
     files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
     text = open(files[0]).read() if files else ""
     shutil.rmtree(logdir, ignore_errors=True)
-    seen = {k: v in text for k, v in TRACE_NAMES.items()}
+    seen = {k: re.search(v, text) is not None
+            for k, v in TRACE_NAMES.items()}
     seen["annotation"] = '"phase13_fit"' in text
     return out, dt, launches, rate, files, seen
 
@@ -2112,9 +2189,10 @@ MESH_WORLD_S = 600
 MESH_COLLECTIVE_S = 300
 MESH_DIR = os.path.join("build", "phase14")
 # The kernels each path must launch on every rank.
-MESH_KERNELS = dict(funnel=("screen", "gather", "fit", "mc_rng"),
-                    dense=("fit_dense",), xla_funnel=("screen", "gather"),
-                    xla_dense=(), polish=(), polish_nocull=())
+MESH_KERNELS = dict(funnel=("screen", "gather", "fit", "mc_rng", "draws"),
+                    dense=("fit_dense", "draws"),
+                    xla_funnel=("screen", "gather", "draws"),
+                    xla_dense=("draws",), polish=(), polish_nocull=())
 # The `polish` jobs: `ops.optimize.loglike_grid` with this `polish_k`
 # on a model-sharded grid (its job's `n_sel` field), with the init cull
 # (`apply_init_cull`) by path: with it, only the models near a star's
@@ -2626,9 +2704,9 @@ PATH_KERNELS = {
         27, 128, 12288, 48)),
     ("funnel", "fit_kernel"): ("fit", lambda sh: fit_bound(
         128, 12288, 27, 8, 15, sh["fit"] * 128 * 12288)),
-    ("funnel", "mc_kernel"): ("mc_rng", lambda sh: mc_bound(
+    ("funnel", K4_NAME): ("mc_rng", lambda sh: mc_bound(
         128, 2048, 50, *sh["mc"], True, sh["clock"])),
-    ("funnel_fed", "mc_kernel"): ("mc_fed", lambda sh: mc_bound(
+    ("funnel_fed", K4_NAME): ("mc_fed", lambda sh: mc_bound(
         128, 2048, 50, *sh["mc"], False, sh["clock"])),
     ("dense", "fit_kernel"): ("fit_dense", lambda sh: fit_dense_bound(
         16, 750_080, 8, sh["fit_dense"] * 16 * 750_080)),
@@ -2636,6 +2714,8 @@ PATH_KERNELS = {
         128, 750_080, 8, 256)),
     ("xla_funnel", "gather_kernel"): ("gather_xla", lambda sh: gather_bound(
         27, 128, 12288, 48)),
+    **{(path, DRAWS_NAME): ("draws", lambda sh, b=B, k=K, z=z: draws_bound(
+        b, k, 50, 250, z, sh["clock"])[:2]) for path, B, K, z in DRAW_PATHS},
 }
 
 
@@ -2728,7 +2808,7 @@ def mc_code():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             code = None
-            if "mc_kernel" in m.group(1):
+            if re.search(K4_NAME, m.group(1)):
                 code = funcs.setdefault(m.group(1), [])
             continue
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
@@ -2775,7 +2855,7 @@ def profile_path(bf, s, dev, path, shares, quiet=False):
     top = sorted(events, key=_device_us, reverse=True)[:10]
     kernels = {}
     for (kp, key), (name, kbound) in PATH_KERNELS.items():
-        hits = [e for e in events if kp == path and key in e.key]
+        hits = [e for e in events if kp == path and re.search(key, e.key)]
         if hits:
             n = sum(e.count for e in hits)
             ms = sum(_device_us(e) for e in hits) / 1e3 / n
@@ -3053,7 +3133,8 @@ def profile_main(dev):
 # The kernel instances of the main paths (K1 and K2 at F=8, windows of
 # 512, the dense kernel's star group; K3; K4 with every prior on):
 # registers and local memory per thread.
-INSTANCES = ("screen", "fit", "fit_dense", "gather", "mc_rng", "mc_fed")
+INSTANCES = ("screen", "fit", "fit_dense", "gather", "mc_rng", "mc_fed",
+             "draws")
 
 
 def kernel_attrs(name, F):
@@ -3065,6 +3146,8 @@ def kernel_attrs(name, F):
         r = _native.attributes("bk_screen_attrs", F)
     elif name == "gather":
         r = _native.attributes("bk_gather_attrs")
+    elif name == "draws":
+        r = _native.attributes("bk_draws_attrs", 0)
     elif name.startswith("mc_"):
         r = _native.attributes("bk_mc_attrs", int(name == "mc_rng"), 1, 1,
                                1, 1)
@@ -3075,10 +3158,10 @@ def kernel_attrs(name, F):
 
 
 # The kernels the funnel runs (phase 11's generated grid, phase 13).
-FUNNEL_KERNELS = ("screen", "gather", "fit", "mc_rng")
+FUNNEL_KERNELS = ("screen", "gather", "fit", "mc_rng", "draws")
 # The phase whose run each kernel's launches are read from.
 KERNEL_PHASE = dict(screen=4, gather=4, fit=4, mc_rng=4, mc_fed=5,
-                    fit_dense=6)
+                    fit_dense=6, draws=4)
 # Phase 4 as first ported, with fed normals (NVIDIA H100 80GB HBM3,
 # 700 W; PERF.md).
 FIRST_STARS_PER_S = "813.8 to 1111.7 stars/s over three card runs"

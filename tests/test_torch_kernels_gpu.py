@@ -342,6 +342,73 @@ def test_mc_kernel_instances_match_plain(cuda, mode, flags):
     _assert_mc_close(k, q, args[2], pd)
 
 
+# The draws kernel's cases, `(B, K, n_mc, n_draws, normals layout)`: the
+# funnel's batch in each layout and the dense engine's in its own (the
+# cells' shapes), then ragged ones: one star, K and n_mc that fill no
+# block of the kernel, and few MC rows.
+DRAW_CASES = ([(128, 2048, 50, 250, z) for z in (None, "mc", "grid")]
+              + [(16, 2048, 50, 250, "grid")]
+              + [s + (z,) for s in ((1, 37, 12, 5), (5, 1000, 12, 250),
+                                    (3, 301, 13, 31))
+                 for z in (None, "mc", "grid")])
+# Rows at and above 2**32 and seeds with the high bit of 64 set.
+DRAW_ROW0 = (0, 2 ** 32 - 2, 2 ** 40 + 7)
+DRAW_SEEDS = (0, 2 ** 63 + 12345, 2 ** 64 - 1)
+
+
+def _plain_draws(seed, rows, K, n_mc, n_draws, z):
+    keys = rng.star_keys(seed, rows)
+    return (keys, *rng.posterior_draws(keys, K, n_mc, n_draws, z=z,
+                                       nmc_pad=TMC.nmc_pad_of(n_mc)))
+
+
+@pytest.mark.parametrize("case", DRAW_CASES,
+                         ids=["x".join(map(str, c[:4])) + f"-{c[4]}"
+                              for c in DRAW_CASES])
+def test_draws_kernel_matches_plain(cuda, case):
+    """The posterior's draws in one launch (`rng.draws`, `csrc/draws.cu`)
+    equal the plain `star_keys` + `posterior_draws` bit for bit on every
+    output (keys, normals, uniforms, Gumbel noise), in each normals
+    layout, for rows past 2**32 and seeds with the high bit set."""
+    B, K, n_mc, n_draws, z = case
+    for row0, seed in zip(DRAW_ROW0, DRAW_SEEDS):
+        rows = torch.arange(row0, row0 + 3 * B, 3, device=cuda)
+        before = TMC.KERNELS["draws"].launches
+        got = rng.draws(seed, rows, K, n_mc, n_draws, z=z,
+                        nmc_pad=TMC.nmc_pad_of(n_mc))
+        assert TMC.KERNELS["draws"].launches == before + 1
+        want = _plain_draws(seed, rows, K, n_mc, n_draws, z)
+        for name, g, w in zip(("keys", "z", "u", "gumbel"), got, want):
+            if w is None:
+                assert g is None, name
+                continue
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert g.is_contiguous(), name
+            assert torch.equal(g, w), (name, row0, seed, int(
+                (g != w).sum()))
+
+
+@pytest.mark.parametrize("grid,kernel_rng", [(False, True), (False, False),
+                                             (True, True)])
+def test_draw_noise_is_one_launch(cuda, grid, kernel_rng):
+    """`draw_noise` on the card launches the draws kernel once and no
+    other hand-written kernel, for rows handed in on the host (as the
+    one-star `fitting.lnpost` hands them) or on the card, and gives the
+    plain version's draws."""
+    from brutus_tpu_torch.ops import _native
+    cfg = dataclasses.replace(PosteriorConfig(), kernel_rng=kernel_rng)
+    for rows in (torch.arange(5, 9), torch.arange(5, 9, device=cuda)):
+        _native.reset_launches()
+        noise = TP.draw_noise(11, rows, 2048, cfg, cuda, grid=grid)
+        launches = {k: v.launches for k, v in _native.KERNELS.items()}
+        assert launches == dict({k: 0 for k in launches}, draws=1)
+        z = "grid" if grid else (None if kernel_rng else "mc")
+        keys, *want = _plain_draws(11, rows.to(cuda), 2048, cfg.n_mc_prior,
+                                   cfg.n_draws, z)
+        for g, w in zip(noise, want + [None if z else keys]):
+            assert (g is None and w is None) or torch.equal(g, w)
+
+
 def _mesh_rank(rank, rdv, out_dir):
     """A rank of `test_funnel_model_mesh_two_ranks_on_one_card`: the
     funnel case of `tests/test_torch_parallel.py` on a 1 x 2 mesh, both

@@ -95,6 +95,38 @@ def test_star_draws_follow_the_row_not_the_batch_position():
     assert torch.isfinite(a.gumbel).all()
 
 
+@pytest.mark.parametrize("z", [None, "mc", "grid"])
+def test_draws_on_the_host_is_the_plain_path(z):
+    """Off the card `rng.draws` is `star_keys` then `posterior_draws`, bit
+    for bit, and launches no kernel, for rows past 2**32 (int32 or int64)
+    and a seed with the high bit of 64 set; `draw_noise` hands on what
+    it returns."""
+    from brutus_tpu_torch.ops import _native
+    seed, nmcp = 2 ** 63 + 977, TMC.nmc_pad_of(13)
+    rows = torch.tensor([2 ** 32 + 5, 3, 2 ** 40])
+    _native.reset_launches()
+    got = rng.draws(seed, rows, 37, 13, 9, z=z, nmc_pad=nmcp)
+    keys = rng.star_keys(seed, rows)
+    want = (keys, *rng.posterior_draws(keys, 37, 13, 9, z=z, nmc_pad=nmcp))
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    small = torch.tensor([4, 1], dtype=torch.int32)
+    for g, w in zip(rng.draws(seed, small, 37, 13, 9, z=z, nmc_pad=nmcp),
+                    rng.draws(seed, small.long(), 37, 13, 9, z=z,
+                              nmc_pad=nmcp)):
+        assert (g is None and w is None) or torch.equal(g, w)
+    cfg = TC.PosteriorConfig(n_mc_prior=13, n_draws=9, kernel_rng=z is None)
+    noise = TP.draw_noise(seed, rows, 37, cfg, "cpu", grid=z == "grid")
+    assert torch.equal(noise.u, want[2])
+    assert torch.equal(noise.gumbel, want[3])
+    assert (noise.z is None) == (z is None)
+    if z is not None:
+        assert torch.equal(noise.z, want[1]) and noise.seeds is None
+    else:
+        assert torch.equal(noise.seeds, keys)
+    assert all(k.launches == 0 for k in _native.KERNELS.values())
+
+
 def test_rng_plain_path_is_fed_plain():
     """On the CPU the random-number mode IS `rng.normals` followed by
     `mc_integrate_plain`: equal outputs, bit for bit; the two modes
