@@ -27,7 +27,9 @@ multiple of `tile * n_shards`, as `prepare_screen(n_shards=)` and
 `prepare_screen_xla(n_shards=)` pad; the reference engine's as
 `brutus_tpu.parallel.shard_grid` pads); only that slice is uploaded,
 so no rank holds the whole grid on its device.  `n_real` stays the
-grid's real model count.
+grid's real model count.  Each record states the dtype `fit` uploads
+the stars in (`upload_dtype`) and the `(first, count)` grid columns an
+external prior covers (`ext_cols`).
 
 The grid-generation objects from the arrays of the JAX package's own
 (as numpy), so that both packages compute from identical tables:
@@ -89,10 +91,11 @@ class GridTables:
     table: torch.Tensor          # (3F + n_aux, Mp) float32
     maskrow: torch.Tensor        # (Mp,) float32
     n_real: int
-    n_filt: int
     aux_names: tuple
     # (3F,) coefficient rows of the last real model, on every shard
     last: torch.Tensor = None
+    upload_dtype = torch.float32
+    ext_cols = property(lambda self: (0, self.n_real))
 
 
 def _aux_rows(models_labels, labels_mask, lnprior, apply_dlabels):
@@ -136,20 +139,21 @@ def from_numpy_grid(models, models_labels, labels_mask=None, device=None,
     maskrow[M:] = -1e30
     part = _shard(Mp, n_shards, shard)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return GridTables(up(table[:, part]), up(maskrow[part]), M, F,
-                      tuple(aux), up(table[:3 * F, M - 1]))
+    return GridTables(up(table[:, part]), up(maskrow[part]), M, tuple(aux),
+                      up(table[:3 * F, M - 1]))
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseTables:
     """The dense engine's device tables (see module docstring)."""
 
-    coeffs: torch.Tensor         # (3, F, Mp) float32; the reference
-    #                              engine's: (M, F, 3) in the grid dtype
+    coeffs: torch.Tensor         # (3, F, Mp) float32
     lnprior: torch.Tensor        # (Mp,), -1e30 on the padding
     feh: torch.Tensor            # (Mp,), 0 on the padding, or None
     loga: torch.Tensor           # (Mp,), 9 on the padding, or None
     n_real: int
+    upload_dtype = torch.float32
+    ext_cols = property(lambda self: (0, self.coeffs.shape[-1]))
 
 
 def dense_tables(models, models_labels, labels_mask=None, device=None,
@@ -168,6 +172,20 @@ def dense_tables(models, models_labels, labels_mask=None, device=None,
         for k, v in aux.items()}
     return DenseTables(coeffs, rows["lnprior"], rows.get("feh"),
                        rows.get("loga"), M)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceTables:
+    """The dense reference engine's device tables (see module
+    docstring), in the grid's dtype, in which it reads the stars too."""
+
+    coeffs: torch.Tensor         # (Ms, F, 3)
+    lnprior: torch.Tensor        # (Ms,), -1e30 on a shard's padding
+    feh: torch.Tensor            # (Ms,) or None
+    loga: torch.Tensor           # (Ms,) or None
+    first: int                   # the shard's first global column
+    upload_dtype = property(lambda self: self.coeffs.dtype)
+    ext_cols = property(lambda self: (self.first, self.coeffs.shape[0]))
 
 
 def reference_tables(models, models_labels, labels_mask=None, device=None,
@@ -196,8 +214,9 @@ def reference_tables(models, models_labels, labels_mask=None, device=None,
                      else None)
     lnprior = np.asarray(lnprior, dt)
     lnprior = np.concatenate([lnprior, np.full(len(mc) - M, -1e30, dt)])
-    return DenseTables(torch.from_numpy(np.ascontiguousarray(mc[part])).to(
-        dev), row(lnprior), lab("feh"), lab("loga"), M)
+    coeffs = torch.from_numpy(np.ascontiguousarray(mc[part])).to(dev)
+    return ReferenceTables(coeffs, row(lnprior), lab("feh"), lab("loga"),
+                           part.start)
 
 
 def nn_from_numpy(filters, params, device=None):
@@ -240,4 +259,5 @@ def isochrone_from_numpy(filters, xgrid, ygrid, predictions, nn_params,
 
 __all__ = ["from_numpy_grid", "dense_tables", "reference_tables",
            "default_grid_lnprior", "GridTables", "DenseTables",
-           "nn_from_numpy", "tracks_from_numpy", "isochrone_from_numpy"]
+           "ReferenceTables", "nn_from_numpy", "tracks_from_numpy",
+           "isochrone_from_numpy"]

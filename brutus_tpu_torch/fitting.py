@@ -3,23 +3,33 @@ Batch brute-force fitter of the PyTorch port (mirrors
 `brutus_tpu/fitting.py`; reference `brutus/fitting.py:1110-2065`).
 
 Four engines, resolved from `engine` and `screen_k` as the JAX package
-resolves them on one device (`fitting.py:749-972`):
+resolves them on one device (`fitting.py:749-972`), each a builder of
+device tables in `convert` and a step:
 
 - `engine="fused"` (the default) with `screen_k` below the grid size:
   the funnel.  Per batch of stars, one Python step runs the screen
   (K2), the block top-k, the slab gather (K3), the shortlist fit (K1,
   stacked mode), the select stage, the MC integration (K4) and the
-  resampling (`_funnel_step`);
+  resampling (`from_numpy_grid`, `_funnel_step`);
 - `engine="fused"` with `screen_k` 0 or at least the grid size: the
   dense engine, K1 in dense mode over every grid model, then
-  `lnpost_grid` (`_dense_step`);
+  `lnpost_grid` (`dense_tables`, `_dense_step`);
 - `engine="xla"` with `screen_k` below the grid size: the
   reference-semantics funnel, K2 and K3 as in the funnel, then the
   convergence loops of `ops.optimize.loglike_grid` on the shortlists
-  and `lnpost_grid` (`_xla_funnel_step`, `ops/screen_xla.py`);
+  and `lnpost_grid` (`from_numpy_grid`, `_xla_funnel_step`);
 - `engine="xla"` otherwise: the dense reference engine,
   `ops.optimize.loglike_grid` over the whole grid in its dtype, then
-  `lnpost_grid` (`_xla_dense_step`).
+  `lnpost_grid` (`reference_tables`, `_xla_dense_step`).
+
+`fit` decides the engine once, as an `_Engine` record (the builder and
+its keywords, the step, whether it groups `scan_batches`); the tables
+state the columns an external prior covers and the dtype of the stars'
+uploads.  The steps all take `(tables, run, batch)`: `run` what the
+call fixes (`_Run`), `batch` one batch's rows and inputs on the device
+(`_Batch`).  All but the funnel's K4 path end in
+`_grid_posterior`: the external prior, the noise (`bf.noise`), then
+`lnpost_grid` (`bf.posterior`).
 
 The JAX package picks `"xla"` when `engine` is None off the TPU; the
 port picks `"fused"` on every device, its kernels being its accelerator
@@ -61,6 +71,7 @@ Inside a `torch.profiler` session, `fit` marks its stages with the
 `bf.*` spans and keeps its counters (`profiling`; README lists them).
 """
 
+import collections
 import math
 import sys
 import time
@@ -107,155 +118,138 @@ def lnpost(seed, results, lnprior_grid, coord, parallax=math.nan,
     av_std)` of its sightline.  Its random numbers are the Philox stream
     of `(seed, row)` (`posterior.draw_noise`), as `fit` draws row `row`'s.
     Returns `lnpost_grid`'s fields without the star axis."""
-    lnl = torch.as_tensor(results["lnlike"])
-    dev = lnl.device
+    dev = torch.as_tensor(results["lnlike"]).device
     one = lambda x: torch.as_tensor(x, device=dev)[None]
-    batch = {k: one(results[k]) for k in ("lnlike", "chi2", "scale", "av",
-                                          "rv", "ndim")}
-    batch["icov_parts"] = tuple(one(p) for p in results["icov_parts"])
-    M = lnl.shape[0]
-    noise = draw_noise(seed, torch.tensor([row]), selection_size(cfg, M),
-                       cfg, dev, grid=True)
     f32 = lambda x: one(torch.as_tensor(x, dtype=torch.float32))
+    fields = {k: one(results[k]) for k in ("lnlike", "chi2", "scale", "av",
+                                           "rv", "ndim")}
+    fields["icov_parts"] = tuple(one(p) for p in results["icov_parts"])
     if dust_profile is not None:
         av_dist, av_mean, av_std = dust_profile
         dust_profile = (torch.as_tensor(av_dist, device=dev), one(av_mean),
                         one(av_std))
-    out = lnpost_grid(batch, lnprior_grid, f32(coord), noise,
-                      parallax=f32(parallax), parallax_err=f32(parallax_err),
-                      feh=feh, loga=loga, dust_profile=dust_profile,
-                      global_idx=None if global_idx is None
-                      else one(global_idx), cfg=cfg, gal_cfg=gal_cfg,
-                      dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
-                      lngalprior=lngalprior, lndustprior=lndustprior)
+    run = _Run(seed, None, cfg, gal_cfg, dust_cfg, apply_av_prior, None,
+               lngalprior, lndustprior, None)
+    star = _Batch(torch.tensor([row]), None, None, None, f32(parallax),
+                  f32(parallax_err), f32(coord), dust_profile, None)
+    out = _grid_posterior(run, star, fields, lnprior_grid, feh, loga,
+                          None if global_idx is None else one(global_idx))
     return {k: v[0] for k, v in out.items()}
 
 
-def _funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
-                 dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                 apply_av_prior, tile, lngalprior=None, lndustprior=None,
-                 ext_at=None, model_group=None):
+# The records of the module docstring.
+_Run = collections.namedtuple(
+    "_Run", "seed fit_cfg post_cfg gal_cfg dust_cfg apply_av_prior tile "
+    "lngalprior lndustprior model_group")
+_Batch = collections.namedtuple(
+    "_Batch", "rows flux err mask plx plx_err coord dust_profile ext_at")
+_Engine = collections.namedtuple("_Engine", "build kw step scans")
+
+
+def _grid_posterior(run, batch, res, lnprior, feh, loga, gidx=None,
+                    sharded=False):
+    """Every posterior but the funnel's K4 path: the external prior (at
+    the shortlists' grid indices `gidx`, else the tables' columns), the
+    noise, then `lnpost_grid` on the `(B, M)` fields `res`; `sharded`:
+    `res` holds this rank's models of `run.model_group`."""
+    group = run.model_group if sharded else None
+    lnl = res["lnlike"]
+    if batch.ext_at is not None:
+        res["lnlike"] = lnl = lnl + batch.ext_at(gidx).to(lnl.dtype)
+    M = lnl.shape[1] * group_size(group)
+    with profiling.span("bf.noise"):
+        noise = draw_noise(run.seed, batch.rows,
+                           selection_size(run.post_cfg, M), run.post_cfg,
+                           lnl.device, grid=True)
+    with profiling.span("bf.posterior"):
+        return lnpost_grid(res, lnprior, batch.coord, noise,
+                           parallax=batch.plx, parallax_err=batch.plx_err,
+                           feh=feh, loga=loga, global_idx=gidx,
+                           dust_profile=batch.dust_profile, cfg=run.post_cfg,
+                           gal_cfg=run.gal_cfg, dust_cfg=run.dust_cfg,
+                           apply_av_prior=run.apply_av_prior,
+                           lngalprior=run.lngalprior,
+                           lndustprior=run.lndustprior, model_group=group)
+
+
+def _funnel_step(tables, run, batch):
     """One batch through the funnel: likelihood, then posterior (K4, or
     `lnpost_grid` on the shortlists for custom prior callables, as
-    `posterior.py:806-843` routes them).  `ext_at(gidx)` gives the
-    external label prior at the shortlists' grid indices, added to a
-    copy of the pack's lnlike row (`fitting.py:165-173`)."""
+    `posterior.py:806-843` routes them).  The external prior at the
+    shortlists' grid indices is added to a copy of the pack's lnlike
+    row (`fitting.py:165-173`)."""
+    cfg = run.fit_cfg
     res = loglike_grid_screened(
-        flux, err, mask, tables.table, tables.maskrow, tables.n_real,
-        tables.aux_names, parallax=plx, parallax_err=plx_err, cfg=fit_cfg,
-        tile=tile, screen_k=fit_cfg.screen_k,
-        screen_block=fit_cfg.screen_block, model_group=model_group)
+        batch.flux, batch.err, batch.mask, tables.table, tables.maskrow,
+        tables.n_real, tables.aux_names, parallax=batch.plx,
+        parallax_err=batch.plx_err, cfg=cfg, tile=run.tile,
+        screen_k=cfg.screen_k, screen_block=cfg.screen_block,
+        model_group=run.model_group)
     pack, names, gidx = res["pack"], res["names"], res["global_idx"]
-    if ext_at is not None:
+    if run.lngalprior is not None or run.lndustprior is not None:
+        row = {n: pack[:, i] for i, n in enumerate(names)}
+        fields = {k: row[k] for k in ("lnlike", "chi2", "scale", "av", "rv")}
+        fields.update(ndim=res["ndim"], icov_parts=tuple(
+            row[n] for n in ("i00", "i11", "i22", "i01", "i02", "i12")))
+        return _grid_posterior(run, batch, fields, row["lnprior"],
+                               row.get("feh"), row.get("loga"), gidx)
+    if batch.ext_at is not None:
         pack = pack.clone()
-        pack[:, names.index("lnlike")] += ext_at(gidx)
-    P = pack.shape[2]
-    custom = lngalprior is not None or lndustprior is not None
+        pack[:, names.index("lnlike")] += batch.ext_at(gidx)
     with profiling.span("bf.noise"):
-        noise = draw_noise(seed, rows, selection_size(post_cfg, P),
-                           post_cfg, pack.device, grid=custom)
-    kw = dict(parallax=plx, parallax_err=plx_err, dust_profile=dust_profile,
-              cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-              apply_av_prior=apply_av_prior)
-    if not custom:
-        return lnpost_batch(pack, names, res["ndim"], coord, noise,
-                            global_idx=gidx, **kw)
-    row = {n: pack[:, i] for i, n in enumerate(names)}
-    results = dict(lnlike=row["lnlike"], chi2=row["chi2"],
-                   scale=row["scale"], av=row["av"], rv=row["rv"],
-                   icov_parts=tuple(row[n] for n in ("i00", "i11", "i22",
-                                                     "i01", "i02", "i12")),
-                   ndim=res["ndim"])
-    with profiling.span("bf.posterior"):
-        return lnpost_grid(results, row["lnprior"], coord, noise,
-                           feh=row.get("feh"), loga=row.get("loga"),
-                           global_idx=gidx, lngalprior=lngalprior,
-                           lndustprior=lndustprior, **kw)
+        noise = draw_noise(run.seed, batch.rows,
+                           selection_size(run.post_cfg, pack.shape[2]),
+                           run.post_cfg, pack.device)
+    return lnpost_batch(pack, names, res["ndim"], batch.coord, noise,
+                        parallax=batch.plx, parallax_err=batch.plx_err,
+                        dust_profile=batch.dust_profile, cfg=run.post_cfg,
+                        gal_cfg=run.gal_cfg, dust_cfg=run.dust_cfg,
+                        apply_av_prior=run.apply_av_prior, global_idx=gidx)
 
 
-def _dense_step(tables, seed, rows, flux, err, mask, plx, plx_err, coord,
-                dust_profile, fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                apply_av_prior, tile, lngalprior=None, lndustprior=None,
-                ext_at=None, model_group=None):
+def _dense_step(tables, run, batch):
     """One batch through the dense engine (`brutus_tpu.BruteForce.
     _build_step`, engine "fused" without the funnel): K1 over the whole
     grid, then `lnpost_grid`; the external prior is added over the
     padded grid, zero on the padding (`fitting.py:857-860`)."""
     with profiling.span("bf.likelihood"):
-        res = loglike_grid_fused(flux, err, mask, tables.coeffs,
-                                 cfg=fit_cfg, tile=tile,
-                                 n_real=tables.n_real)
-    if ext_at is not None:
-        res["lnlike"] = res["lnlike"] + ext_at(None)
-    M = res["lnlike"].shape[1]
-    with profiling.span("bf.noise"):
-        noise = draw_noise(seed, rows, selection_size(post_cfg, M),
-                           post_cfg, tables.coeffs.device, grid=True)
-    with profiling.span("bf.posterior"):
-        return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
-                           parallax_err=plx_err, feh=tables.feh,
-                           loga=tables.loga, dust_profile=dust_profile,
-                           cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-                           apply_av_prior=apply_av_prior,
-                           lngalprior=lngalprior, lndustprior=lndustprior)
+        res = loglike_grid_fused(batch.flux, batch.err, batch.mask,
+                                 tables.coeffs, cfg=run.fit_cfg,
+                                 tile=run.tile, n_real=tables.n_real)
+    return _grid_posterior(run, batch, res, tables.lnprior, tables.feh,
+                           tables.loga)
 
 
-def _xla_funnel_step(tables, seed, rows, flux, err, mask, plx, plx_err,
-                     coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
-                     dust_cfg, apply_av_prior, tile, lngalprior=None,
-                     lndustprior=None, ext_at=None, model_group=None):
+def _xla_funnel_step(tables, run, batch):
     """One batch through the reference-semantics funnel
     (`brutus_tpu.fitting._screened_step_xla`): K2, K3, the convergence
     loops on the shortlists, then `lnpost_grid` on them."""
+    cfg = run.fit_cfg
     with profiling.span("bf.likelihood"):
         res = loglike_grid_screened_xla(
-            flux, err, mask, tables.table, tables.maskrow, tables.n_real,
-            tables.aux_names, parallax=plx, parallax_err=plx_err,
-            cfg=fit_cfg, tile=tile, screen_k=fit_cfg.screen_k,
-            screen_block=fit_cfg.screen_block, last=tables.last,
-            model_group=model_group)
+            batch.flux, batch.err, batch.mask, tables.table,
+            tables.maskrow, tables.n_real, tables.aux_names,
+            parallax=batch.plx, parallax_err=batch.plx_err, cfg=cfg,
+            tile=run.tile, screen_k=cfg.screen_k,
+            screen_block=cfg.screen_block, last=tables.last,
+            model_group=run.model_group)
     gidx, aux = res.pop("global_idx"), res.pop("aux")
-    if ext_at is not None:
-        res["lnlike"] = res["lnlike"] + ext_at(gidx)
-    M = res["lnlike"].shape[1]
-    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
-                       res["lnlike"].device, grid=True)
-    with profiling.span("bf.posterior"):
-        return lnpost_grid(res, aux["lnprior"], coord, noise, parallax=plx,
-                           parallax_err=plx_err, feh=aux.get("feh"),
-                           loga=aux.get("loga"), dust_profile=dust_profile,
-                           global_idx=gidx, cfg=post_cfg, gal_cfg=gal_cfg,
-                           dust_cfg=dust_cfg, apply_av_prior=apply_av_prior,
-                           lngalprior=lngalprior, lndustprior=lndustprior)
+    return _grid_posterior(run, batch, res, aux["lnprior"], aux.get("feh"),
+                           aux.get("loga"), gidx)
 
 
-def _xla_dense_step(tables, seed, rows, flux, err, mask, plx, plx_err,
-                    coord, dust_profile, fit_cfg, post_cfg, gal_cfg,
-                    dust_cfg, apply_av_prior, tile, lngalprior=None,
-                    lndustprior=None, ext_at=None, model_group=None):
+def _xla_dense_step(tables, run, batch):
     """One batch through the dense reference engine (`brutus_tpu.
     BruteForce._build_step`, engine "xla"): `loglike_grid` over the
     whole grid in its dtype, then `lnpost_grid`; on a `model_group`,
     over this rank's slice of the grid, merged over the group."""
     with profiling.span("bf.likelihood"):
-        res = loglike_grid(flux, err, mask, tables.coeffs, parallax=plx,
-                           parallax_err=plx_err, cfg=fit_cfg,
-                           model_group=model_group)
+        res = loglike_grid(batch.flux, batch.err, batch.mask, tables.coeffs,
+                           parallax=batch.plx, parallax_err=batch.plx_err,
+                           cfg=run.fit_cfg, model_group=run.model_group)
     res.pop("n_iter")
-    if ext_at is not None:
-        res["lnlike"] = res["lnlike"] + ext_at(None).to(
-            res["lnlike"].dtype)
-    M = res["lnlike"].shape[1] * group_size(model_group)
-    noise = draw_noise(seed, rows, selection_size(post_cfg, M), post_cfg,
-                       tables.coeffs.device, grid=True)
-    with profiling.span("bf.posterior"):
-        return lnpost_grid(res, tables.lnprior, coord, noise, parallax=plx,
-                           parallax_err=plx_err, feh=tables.feh,
-                           loga=tables.loga, dust_profile=dust_profile,
-                           cfg=post_cfg, gal_cfg=gal_cfg, dust_cfg=dust_cfg,
-                           apply_av_prior=apply_av_prior,
-                           lngalprior=lngalprior, lndustprior=lndustprior,
-                           model_group=model_group)
+    return _grid_posterior(run, batch, res, tables.lnprior, tables.feh,
+                           tables.loga, sharded=True)
 
 
 class _ExternalPrior:
@@ -282,9 +276,7 @@ class _ExternalPrior:
                 torch.as_tensor(np.asarray(models_labels[k], float), **f64),
                 torch.as_tensor(pars[:, 0], **f64),
                 torch.as_tensor(pars[:, 1], **f64)))
-        self.n_cols = n_cols
-        self.first = first
-        self.device = device
+        self.n_cols, self.first = n_cols, first
 
     def at(self, lo, hi, cols):
         total = None
@@ -614,25 +606,28 @@ class BruteForce:
                 dust_dist = torch.as_tensor(dd, dtype=f32, device=dev)
             profiling.count("h2d_bytes", dust_dist.nbytes)
 
-        build, step = {
-            ("fused", True): (from_numpy_grid, _funnel_step),
-            ("fused", False): (dense_tables, _dense_step),
-            ("xla", True): (from_numpy_grid, _xla_funnel_step),
-            ("xla", False): (reference_tables, _xla_dense_step),
-        }[engine, use_screen]
-        kw = {} if build is reference_tables else dict(tile=tile)
+        # the engine, decided once (the steps looked up at call time)
+        tiled = dict(tile=tile)
+        eng = _Engine(*{
+            ("fused", True): (from_numpy_grid, tiled, _funnel_step, True),
+            ("fused", False): (dense_tables, tiled, _dense_step, False),
+            ("xla", True): (from_numpy_grid, tiled, _xla_funnel_step, True),
+            ("xla", False): (reference_tables, {}, _xla_dense_step, False),
+        }[engine, use_screen])
+        kw = dict(eng.kw)
         if model_ax > 1:
             kw.update(n_shards=model_ax, shard=shard)
         with profiling.span("bf.tables"):
-            key = (build, tuple(sorted(kw.items())), bool(apply_dlabels),
-                   dev)
+            key = (eng.build, tuple(sorted(kw.items())),
+                   bool(apply_dlabels), dev)
             tables = self._kept_tables(key, lnprior)
             reused = tables is not None
             if not reused:
                 self._tables = None     # frees the old entry's memory first
-                tables = build(self.models, self.models_labels,
-                               self.labels_mask, device=dev, lnprior=lnprior,
-                               apply_dlabels=apply_dlabels, **kw)
+                tables = eng.build(self.models, self.models_labels,
+                                   self.labels_mask, device=dev,
+                                   lnprior=lnprior,
+                                   apply_dlabels=apply_dlabels, **kw)
                 # the caller may change its own prior in place: keep a copy
                 own = any(lnprior is p for p in self._priors.values())
                 self._tables = (key, lnprior if own else lnprior.copy(),
@@ -642,22 +637,13 @@ class BruteForce:
             profiling.count("h2d_bytes", _nbytes(vars(tables).values()))
         ext = None
         if lnprior_ext is not None:
-            n_cols, first = self.NMODEL, 0
-            if step is _dense_step:
-                n_cols = tables.coeffs.shape[-1]
-            elif step is _xla_dense_step:     # this rank's columns
-                n_cols = tables.coeffs.shape[0]
-                first = shard * n_cols
+            first, n_cols = tables.ext_cols
             ext = _ExternalPrior(lnprior_ext, self.models_labels, n_cols,
                                  dev, first)
-        # The dense reference engine reads the data in the grid's dtype.
-        data_dt = (tables.coeffs.dtype if step is _xla_dense_step
-                   else f32)
         # Funnel engines group `scan_batches` batches per launch sequence
         # and copy-back (`fitting.py:984-990`), on one device.
-        n_scan = (max(1, int(scan_batches))
-                  if step in (_funnel_step, _xla_funnel_step)
-                  and mesh is None else 1)
+        n_scan = (max(1, int(scan_batches)) if eng.scans and mesh is None
+                  else 1)
         chunk = batch_size * n_scan
         # a data rank's share of each batch
         share = batch_size // n_dax
@@ -676,61 +662,56 @@ class BruteForce:
             start_row = int(all_reduce(torch.tensor(
                 [start_row], device=dev), "sum", mesh.world)[0])
         fetcher = _Fetcher(dev)
+        run = _Run(seed, fit_cfg, post_cfg, gal_cfg, dust_cfg,
+                   apply_av_prior, tile, lngalprior, lndustprior,
+                   model_group)
 
         def launch(lo, hi):
             """Upload and launch the batches of rows lo..hi (float32
             products at full precision); start the copy back of their
-            packed outputs."""
+            packed outputs.  On a mesh, this rank's share of the batch
+            at lo, past the data copies of the last row
+            (`fitting.py:1008-1017`)."""
             with highest_precision(), profiling.span("bf.launch"):
-                return _launch(lo, hi)
-
-        def _launch(lo, hi):
-            # This rank's rows lo..hi, batch by batch; on a mesh, its
-            # share of the batch at lo, past the data copies of the last
-            # row (`fitting.py:1008-1017`).
-            r0, r1, per = lo, hi, batch_size
-            if mesh is not None:
-                r0 = lo + mesh.coords[0] * share
-                r1, per = r0 + share, share
-            take = np.minimum(np.arange(r0, r1), n_data - 1)
-            # pageable uploads: pinning each small input per call cost
-            # more than it overlapped (PERF.md, the streaming loop)
-            up = lambda x, dt=f32: torch.as_tensor(x[take], dtype=dt,
-                                                   device=dev)
-            with profiling.span("bf.upload"):
-                g = dict(flux=up(data, data_dt), err=up(data_err, data_dt),
-                         mask=up(data_mask, torch.bool), plx=up(parallax),
-                         plxe=up(parallax_err), coord=up(data_coords))
-                if apply_av_prior:
-                    g["dm"], g["ds"] = up(dust_mean), up(dust_std)
-            if profiling.recording():
-                profiling.count("h2d_bytes", _nbytes(g.values()))
-            packs = []
-            for blo in range(r0, r1, per):
-                bhi = min(blo + per, r1)
-                b = slice(blo - r0, bhi - r0)
-                rows = torch.arange(blo, bhi, device=dev)
-                dp = ((dust_dist, g["dm"][b], g["ds"][b])
-                      if apply_av_prior else None)
-                ext_at = (None if ext is None else
-                          (lambda cols, a=blo, z=bhi: ext.at(a, z, cols)))
-                out = step(tables, seed, rows,
-                           g["flux"][b], g["err"][b], g["mask"][b],
-                           g["plx"][b], g["plxe"][b], g["coord"][b], dp,
-                           fit_cfg, post_cfg, gal_cfg, dust_cfg,
-                           apply_av_prior, tile, lngalprior, lndustprior,
-                           ext_at=ext_at, model_group=model_group)
-                with profiling.span("bf.pack"):
-                    packs.append(_pack_outputs(out, skip))
-            layout = packs[0][1]
-            mats = [None if packs[0][0][i] is None
-                    else torch.cat([p[0][i] for p in packs])
-                    for i in range(2)]
-            # every rank gets the whole batch, in row order
-            mats = [None if m is None else
-                    all_gather(m, data_group, dim=0)[:hi - lo] for m in mats]
-            with profiling.span("bf.copy"):
-                return (lo, hi - lo, layout) + fetcher.start(mats)
+                r0, r1, per = lo, hi, batch_size
+                if mesh is not None:
+                    r0 = lo + mesh.coords[0] * share
+                    r1, per = r0 + share, share
+                take = np.minimum(np.arange(r0, r1), n_data - 1)
+                # pageable uploads: pinning each small input per call cost
+                # more than it overlapped (PERF.md, the streaming loop)
+                up = lambda x, dt=f32: torch.as_tensor(x[take], dtype=dt,
+                                                       device=dev)
+                with profiling.span("bf.upload"):
+                    g = dict(flux=up(data, tables.upload_dtype),
+                             err=up(data_err, tables.upload_dtype),
+                             mask=up(data_mask, torch.bool),
+                             plx=up(parallax), plxe=up(parallax_err),
+                             coord=up(data_coords))
+                    if apply_av_prior:
+                        g["dm"], g["ds"] = up(dust_mean), up(dust_std)
+                if profiling.recording():
+                    profiling.count("h2d_bytes", _nbytes(g.values()))
+                packs = []
+                for blo in range(r0, r1, per):
+                    bhi = min(blo + per, r1)
+                    b = slice(blo - r0, bhi - r0)
+                    dp = ((dust_dist, g["dm"][b], g["ds"][b])
+                          if apply_av_prior else None)
+                    ext_at = (None if ext is None else (
+                        lambda cols, a=blo, z=bhi: ext.at(a, z, cols)))
+                    out = eng.step(tables, run, _Batch(
+                        torch.arange(blo, bhi, device=dev), g["flux"][b],
+                        g["err"][b], g["mask"][b], g["plx"][b], g["plxe"][b],
+                        g["coord"][b], dp, ext_at))
+                    with profiling.span("bf.pack"):
+                        packs.append(_pack_outputs(out, skip))
+                # every rank gets the whole batch, in row order
+                mats = [None if packs[0][0][i] is None else all_gather(
+                    torch.cat([p[0][i] for p in packs]), data_group,
+                    dim=0)[:hi - lo] for i in range(2)]
+                with profiling.span("bf.copy"):
+                    return (lo, hi - lo, packs[0][1]) + fetcher.start(mats)
 
         def finish(item):
             lo, n, layout, host, event = item

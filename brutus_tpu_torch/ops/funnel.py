@@ -35,7 +35,7 @@ from .. import profiling
 from ..config import FitConfig, LN2PI
 from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ._native import KERNELS, check
-from .optimize import prepare_star_data
+from .optimize import parallax_or_nan, prepare_star_data
 
 SCREEN_MAG_CENTER = 12.0
 # Block widths K2 reduces over: its warps reduce 32 models each.
@@ -507,6 +507,31 @@ def fit_pack(star, coef, gidx, srow, n_aux, n_rows, n_real_mask, tile,
 # The funnel
 # ---------------------------------------------------------------------------
 
+def screen_and_gather(flux, fluxerr, mask, table, maskrow, parallax,
+                      parallax_err, cfg: FitConfig, tile, screen_k,
+                      screen_block, model_group=None):
+    """The first stage of both funnels, in `bf.screen` and `bf.gather`:
+    the stars' hygiene, K2, the best `screen_k // block` blocks per star
+    and K3's gather, for float32 (B, F) stars on the table's device.
+    Returns `prepare_star_data`'s tuple, the parallaxes (NaN where None),
+    the (B, P) int32 grid index of each shortlist model and its slab."""
+    B, F = flux.shape
+    Mp = table.shape[1] * group_size(model_group)   # the whole grid's
+    block = _slab_block(screen_block, tile)
+    nb = max(1, min(screen_k // block, Mp // block))
+    with profiling.span("bf.screen"):
+        star = prepare_star_data(flux, fluxerr, mask, cfg)
+        parallax, parallax_err = parallax_or_nan(B, table.device, parallax,
+                                                 parallax_err)
+        star2, srow5 = _screen_star_mats(
+            star[2], star[3], *_screen_parallax(parallax, parallax_err))
+        bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
+    with profiling.span("bf.gather"):
+        _, idx, slab = select_and_gather(table, bscore, nb, block,
+                                         model_group)
+    return star, parallax, parallax_err, idx, slab
+
+
 def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
                           aux_names, parallax=None, parallax_err=None,
                           cfg: FitConfig = FitConfig(), tile=512,
@@ -514,7 +539,7 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
                           model_group=None):
     """Funnel likelihood (mirrors `loglike_grid_screened`): K2 scores
     every model, the best `screen_k // block` blocks per star are kept,
-    K3 gathers them and K1 fits them.
+    K3 gathers them (`screen_and_gather`) and K1 fits them.
 
     With a `model_group` of several shards (the JAX package's
     `model_axis`, with `n_model_shards` its size), `table` and
@@ -529,46 +554,29 @@ def loglike_grid_screened(flux, fluxerr, mask, table, maskrow, n_real,
     `global_idx` the (B, P) int32 grid index of each shortlist model
     (the pack's float32 `gidx` row is exact only below 2**24).
     """
-    B, F = flux.shape
     dev = table.device
     Mp = table.shape[1] * group_size(model_group)   # the whole grid's
     flux = flux.to(dev, torch.float32)
     fluxerr = fluxerr.to(dev, torch.float32)
     mask = mask.to(dev)
-    block = _slab_block(screen_block, tile)
-    nb = max(1, min(screen_k // block, Mp // block))
-    P = nb * block
+    (*star4, mask, ndim, tot_var), _, _, idx, coef = screen_and_gather(
+        flux, fluxerr, mask, table, maskrow, parallax, parallax_err, cfg,
+        tile, screen_k, screen_block, model_group)
     tile2 = tile
-    while P % tile2:
+    while idx.shape[1] % tile2:
         tile2 //= 2
-
-    with profiling.span("bf.screen"):
-        flux_p, wt_flux, mags, wt_mag, mask, ndim, tot_var = \
-            prepare_star_data(flux, fluxerr, mask, cfg)
-        nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-        parallax = (nan if parallax is None
-                    else parallax.to(dev, torch.float32))
-        parallax_err = (nan if parallax_err is None
-                        else parallax_err.to(dev, torch.float32))
-        plx, plxw = _screen_parallax(parallax, parallax_err)
-        star2, srow5 = _screen_star_mats(mags, wt_mag, plx, plxw)
-        bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
-    with profiling.span("bf.gather"):
-        _, idx, coef = select_and_gather(table, bscore, nb, block,
-                                         model_group)
 
     n_aux = len(aux_names)
     n_rows = 12 + n_aux
     with profiling.span("bf.fit_models"):
-        star4 = torch.stack([flux_p, wt_flux, mags, wt_mag],
-                            dim=1).contiguous()
-        pack = fit_pack(star4, coef, idx.contiguous(),
-                        post_consts(mask, ndim, tot_var), n_aux, n_rows,
-                        n_real if n_real < Mp else -1, tile2, cfg)
+        pack = fit_pack(torch.stack(star4, dim=1).contiguous(), coef,
+                        idx.contiguous(), post_consts(mask, ndim, tot_var),
+                        n_aux, n_rows, n_real if n_real < Mp else -1, tile2,
+                        cfg)
     return dict(pack=pack, names=pack_row_names(aux_names), ndim=ndim,
                 global_idx=idx)
 
 
-__all__ = ["loglike_grid_screened", "screen_blocks", "gather_slabs",
-           "fit_pack", "fit_pack_plain", "post_consts", "pack_row_names",
-           "screen_score_from_sums"]
+__all__ = ["loglike_grid_screened", "screen_and_gather", "screen_blocks",
+           "gather_slabs", "fit_pack", "fit_pack_plain", "post_consts",
+           "pack_row_names", "screen_score_from_sums"]

@@ -72,6 +72,13 @@ def prepare_star_data(flux, fluxerr, mask, cfg: FitConfig):
     return flux, wt_flux, mags, wt_mag, mask, ndim, tot_var
 
 
+def parallax_or_nan(B, device, parallax, parallax_err):
+    """The `(B,)` float32 parallaxes and errors on `device`, NaN if None."""
+    nan = torch.full((B,), math.nan, dtype=torch.float32, device=device)
+    return tuple(nan if x is None else x.to(device, torch.float32)
+                 for x in (parallax, parallax_err))
+
+
 @contextlib.contextmanager
 def highest_precision():
     """Float32 matrix products at full precision (no TF32) inside the
@@ -549,6 +556,6 @@ def loglike_grid(flux, fluxerr, mask, mag_coeffs, parallax=math.nan,
     return out
 
 
-__all__ = ["prepare_star_data", "direct_mag_init", "optimize_mag",
-           "sed_mle", "optimize_flux_step", "loglike_grid",
+__all__ = ["prepare_star_data", "parallax_or_nan", "direct_mag_init",
+           "optimize_mag", "sed_mle", "optimize_flux_step", "loglike_grid",
            "highest_precision"]

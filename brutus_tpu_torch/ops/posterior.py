@@ -38,6 +38,7 @@ from ..priors import (gal_lnprior, dust_lnprior, parallax_lnprior,
 from ..parallel.mesh import all_gather, all_reduce, group_rank, group_size
 from ..utils import (sym3_from_parts, psd_repair_parts, cholesky3_parts)
 from .mc import mc_integrate, nmc_pad_of, NL_PAD
+from .optimize import parallax_or_nan
 from . import rng
 
 NEG_BIG = -1e30
@@ -457,11 +458,8 @@ def _star_scalars(coord, parallax, parallax_err, dust_profile, use_dust):
 
 def _star_args(B, dev, parallax, parallax_err, coord):
     """Per-star float32 parallax (NaN where missing) and coordinates."""
-    nan = torch.full((B,), math.nan, dtype=torch.float32, device=dev)
-    parallax = nan if parallax is None else parallax.to(dev, torch.float32)
-    parallax_err = (nan if parallax_err is None
-                    else parallax_err.to(dev, torch.float32))
-    return parallax, parallax_err, coord.to(dev, torch.float32)
+    return parallax_or_nan(B, dev, parallax, parallax_err) + (
+        coord.to(dev, torch.float32),)
 
 
 def _evidence_and_draws(lnp_sel, chi2_k, u, n_draws):

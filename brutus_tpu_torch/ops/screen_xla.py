@@ -3,15 +3,15 @@ The reference-semantics funnel: screen every model, fit a shortlist with
 the convergence loops of `optimize.loglike_grid` (mirrors
 `brutus_tpu/ops/screen_xla.py`, one device).
 
-Stage 1 is the fused funnel's own: K2 scores every model with the
-clamped direct 3x3 weighted least-squares solve plus the parallax chi2
-(the JAX package's plain-XLA screen evaluates the same
-`screen_score_from_sums`, `screen_xla.py:17-19`), the best
-`screen_k // block` blocks of each star are kept (`_select_blocks`)
-and K3 gathers them, all on the tables `convert.from_numpy_grid`
-builds.  The JAX package's three-way bf16 split tables
-(`prepare_screen_xla`) are not built: they are the TPU matrix unit's
-way of summing at float32 precision, and K2 sums in float32 already.
+Stage 1 is the fused funnel's own (`funnel.screen_and_gather`): K2
+scores every model with the clamped direct 3x3 weighted least-squares
+solve plus the parallax chi2 (the JAX package's plain-XLA screen
+evaluates the same `screen_score_from_sums`, `screen_xla.py:17-19`), the
+best `screen_k // block` blocks of each star are kept (`_select_blocks`)
+and K3 gathers them, all on the tables `convert.from_numpy_grid` builds.
+The JAX package's three-way bf16 split tables (`prepare_screen_xla`) are
+not built: they are the TPU matrix unit's way of summing at float32
+precision, and K2 sums in float32 already.
 
 Stage 2 reshapes each star's gathered slab to `(P, F, 3)` coefficients
 and its aux rows, and runs the batched `optimize.loglike_grid` body on
@@ -29,16 +29,12 @@ that every shard carries (`convert.GridTables.last`): the shard that
 holds column `n_real - 1` is only one of them.
 """
 
-import math
-
 import torch
 
 from ..config import FitConfig
 from ..parallel.mesh import group_size
-from .funnel import (_screen_parallax, _screen_star_mats, _slab_block,
-                     screen_blocks, select_and_gather)
-from .optimize import _loglike_grid_body, highest_precision, \
-    prepare_star_data
+from .funnel import screen_and_gather
+from .optimize import _loglike_grid_body, highest_precision
 
 
 def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
@@ -63,25 +59,13 @@ def loglike_grid_screened_xla(flux, fluxerr, mask, table, maskrow, n_real,
     B, F = flux.shape
     dev = table.device
     Mp = table.shape[1] * group_size(model_group)   # the whole grid's
-    f32 = torch.float32
-    flux = flux.to(dev, f32)
-    fluxerr = fluxerr.to(dev, f32)
+    flux = flux.to(dev, torch.float32)
+    fluxerr = fluxerr.to(dev, torch.float32)
     mask = mask.to(dev)
-    block = _slab_block(screen_block, tile)
-    nb = max(1, min(screen_k // block, Mp // block))
-    nan = torch.full((B,), math.nan, dtype=f32, device=dev)
-    parallax = nan if parallax is None else parallax.to(dev, f32)
-    parallax_err = nan if parallax_err is None else parallax_err.to(dev, f32)
-
-    _, _, mags, wt_mag, _, _, _ = prepare_star_data(flux, fluxerr, mask, cfg)
-    star2, srow5 = _screen_star_mats(mags, wt_mag,
-                                     *_screen_parallax(parallax,
-                                                       parallax_err))
-    bscore = screen_blocks(table, maskrow, star2, srow5, F, block, cfg)
-    _, idx, slab = select_and_gather(table, bscore, nb, block,
-                                     model_group)        # (C, B, P)
-    P = nb * block
-    coeffs = slab[:3 * F].reshape(3, F, B, P).permute(2, 3, 1,
+    _, parallax, parallax_err, idx, slab = screen_and_gather(
+        flux, fluxerr, mask, table, maskrow, parallax, parallax_err, cfg,
+        tile, screen_k, screen_block, model_group)      # slab (C, B, P)
+    coeffs = slab[:3 * F].reshape(3, F, B, -1).permute(2, 3, 1,
                                                       0).contiguous()
     if n_real < Mp:
         # The table's zero padding columns would make singular solves

@@ -4,7 +4,6 @@
     python3 chip_smoke.py               # the card run (needs one CUDA card)
     python3 chip_smoke.py --cpu --tiny  # rehearsal: phases 4-13 on the CPU
     python3 chip_smoke.py --profile     # where each fit path's time goes
-    python3 chip_smoke.py --rates 2     # warm stars/s of the fused paths
     python3 chip_smoke.py --mesh        # phase 14's paths on four cards
 
 Phases, each printing one line with its elapsed seconds:
@@ -158,17 +157,14 @@ kernel's launches x (ms - bound) on the path that runs it (K1's bound
 from the share of pairs moving on the path's first batch, K4's from its
 valid and active columns per launch), the order
 in which kernel redesigns would win the most time back; the last line
-is one JSON object with these numbers.  `--rates N` times warm fits of
-the funnel, the funnel with fed normals and the dense engine in turns,
-N rounds forwards and backwards, and lists the host operations of one
-funnel fit; a copy of the script in an older checkout times that
-checkout the same way.  `--mesh` (four cards, never part of the
-default run) runs phase 14's paths on 1 x 4, 2 x 2 and 4 x 1 meshes over
-NCCL, and the funnel at 32768 stars on 4 x 1 and 1 x 4, each twice (cold,
-warm) against its warm single-process run on card 0; `--mesh --cpu
---tiny` rehearses it with four gloo processes.  The script imports
-nothing of JAX nor of the JAX package; its grid generator is its own
-copy of the correlated lattice the repository's JAX benchmark uses.
+is one JSON object with these numbers.  `--mesh` (four cards, never
+part of the default run) runs phase 14's paths on 1 x 4, 2 x 2 and
+4 x 1 meshes over NCCL, and the funnel at 32768 stars on 4 x 1 and
+1 x 4, each twice (cold, warm) against its warm single-process run on
+card 0; `--mesh --cpu --tiny` rehearses it with four gloo processes.
+The script imports nothing of JAX nor of the JAX package; its grid
+generator is its own copy of the correlated lattice the repository's
+JAX benchmark uses.
 """
 
 import argparse
@@ -2890,39 +2886,6 @@ def warm_rates(bf, s, dev, order):
     return rates
 
 
-def rates_main(dev, rounds):
-    """`--rates`: warm stars/s of the three fused paths in turns
-    (`rounds` times funnel / fed / dense, then the same backwards), and
-    the host operations of one warm funnel fit by their own CPU time.
-    Uses nothing that the fit of an earlier slice lacks, so a copy of
-    this script placed in an older checkout times that checkout's
-    package the same way."""
-    from brutus_tpu_torch import BruteForce
-    card = nvidia_smi()
-    log(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    mc, labels = correlated_grid(750_000, 8)
-    bf = BruteForce(mc, labels, device=dev)
-    s = path_stars(mc)
-    turn = ("funnel", "funnel_fed", "dense")
-    rates = warm_rates(bf, s, dev, (turn + turn[::-1]) * rounds)
-    log(f"warm fits, stars/s in turns: {rates}")
-    act = [torch.profiler.ProfilerActivity.CPU]
-    with torch.profiler.profile(activities=act) as prof:
-        path_fit(bf, s[PATHS["funnel"]["n"]], dev, "funnel")
-    ev = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    host = {e.key[:60]: dict(self_ms=e.self_cpu_time_total / 1e3,
-                             count=e.count) for e in ev[:25]}
-    log("host operations of one funnel fit of 512 stars, by own CPU time:")
-    for k, v in host.items():
-        log(f"  {v['self_ms']:9.3f} ms  x{v['count']:<6d} {k}")
-    log(json.dumps(dict(card=card, stars_per_s=rates,
-                        median={k: float(np.median(v))
-                                for k, v in rates.items()},
-                        funnel_host_ops=host)))
-    return 0
-
-
 def stage_ms(fn, stages):
     """Run `fn()` once with each function `stages[label] = [(module,
     name), ...]` bracketed by CUDA events at every call; returns each
@@ -3177,9 +3140,6 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="time and profile each fit path on the card "
                          "instead of the smoke phases")
-    ap.add_argument("--rates", type=int, default=0, metavar="ROUNDS",
-                    help="time warm fits of the three fused paths in turns "
-                         "on the card instead of the smoke phases")
     ap.add_argument("--mesh", action="store_true",
                     help="phase 14's paths on four cards over NCCL (1 x 4, "
                          "2 x 2, 4 x 1) against one card, instead of the "
@@ -3203,8 +3163,6 @@ def main():
         dev = torch.device("cuda")
         if args.profile:
             return profile_main(dev)
-        if args.rates:
-            return rates_main(dev, args.rates)
 
     from brutus_tpu_torch.ops import _native
     card = None

@@ -93,7 +93,7 @@ def test_resume_writes_the_rows_of_an_uninterrupted_run(setup, tmp_path):
     orig = fitting._funnel_step
 
     def counting(*a, **k):
-        calls.append(len(a[2]))
+        calls.append(len(a[2].rows))
         return orig(*a, **k)
 
     fitting._funnel_step = counting

@@ -213,12 +213,13 @@ def test_results_do_not_depend_on_the_profiler(problem, tmp_path):
 @pytest.mark.parametrize("engine", ["dense", "xla_funnel", "xla_dense"])
 def test_other_engines_spans(problem, tmp_path, engine):
     """The dense and reference-semantics engines: the entry and group
-    spans, and one `bf.likelihood` and one `bf.posterior` per batch
-    (8 stars in one batch) with `lnpost_grid`'s `bf.select`, `bf.mc`
-    and `bf.draws` inside it; `bf.noise` in the dense engine alone;
-    none of the funnel's likelihood stages; and, on the first call of a
-    new `BruteForce`, at least the grid's coefficients counted as
-    uploaded."""
+    spans, and one `bf.likelihood`, one `bf.noise` and one
+    `bf.posterior` per batch (8 stars in one batch) with
+    `lnpost_grid`'s `bf.select`, `bf.mc` and `bf.draws` inside it; the
+    funnel's shared first stage (one `bf.screen` and one `bf.gather`
+    inside `bf.likelihood`) in the reference-semantics funnel alone, and
+    no `bf.fit_models`; and, on the first call of a new `BruteForce`,
+    at least the grid's coefficients counted as uploaded."""
     kw = dict(dense=dict(screen_k=0), xla_funnel=dict(engine="xla"),
               xla_dense=dict(engine="xla", screen_k=0))[engine]
     _, spans, rec = _traced(_fresh(problem), tmp_path, 8, **kw)
@@ -229,8 +230,14 @@ def test_other_engines_spans(problem, tmp_path, engine):
             "bf.pack", "bf.copy", "bf.wait", "bf.unpack"} <= set(names)
     for name in ("bf.select", "bf.mc", "bf.draws"):
         assert names.count(name) == 1 and parent[name] == "bf.posterior"
-    assert names.count("bf.noise") == (engine == "dense")
-    assert not set(names) & {"bf.screen", "bf.gather", "bf.fit_models"}
+    assert names.count("bf.noise") == 1
+    assert "bf.fit_models" not in names
+    for name in ("bf.screen", "bf.gather"):
+        if engine == "xla_funnel":
+            assert names.count(name) == 1
+            assert parent[name] == "bf.likelihood"
+        else:
+            assert name not in names
     assert rec["counters"]["h2d_bytes"] >= 4 * 3 * F * N_MODEL
 
 
